@@ -1,0 +1,20 @@
+"""mri_interpolation_tpu_torch — the PyTorch and CUDA port of
+``mri_interpolation_tpu`` for one NVIDIA H100.
+
+The JAX package beside it is the reference: every module here keeps its
+counterpart's name and semantics, and the tests feed both the same inputs.
+This package imports ``torch`` and numpy only, never ``jax`` and nothing of
+the JAX package.
+
+Entry points (``launcher.run``, ``train.Trainer.fit``,
+``infer.evaluate_grid``, ``models.make_hash_mlp``) run on ``cuda`` unless
+the caller passes ``device="cpu"``; with no card they raise. The hand-written
+CUDA kernels (``ops/csrc``) are built with ``nvcc`` at first use; on a CPU
+tensor each kernel wrapper runs its plain PyTorch version instead.
+"""
+
+__version__ = "0.1.0"
+
+from .device import resolve_device
+
+__all__ = ["resolve_device", "__version__"]

@@ -1,0 +1,132 @@
+"""The port stands alone: ``mri_interpolation_tpu_torch`` and ``chip_smoke.py``
+import neither ``jax`` nor the JAX package, importing the port loads no JAX,
+its kernels are built without PyTorch's extension machinery, and its entry
+points run on the card unless the CPU is asked for."""
+
+import ast
+import os
+import pkgutil
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import mri_interpolation_tpu_torch as port
+from mri_interpolation_tpu_torch import device as port_device
+from mri_interpolation_tpu_torch import launcher
+from mri_interpolation_tpu_torch.configs import RunConfig
+from mri_interpolation_tpu_torch.infer import evaluate_grid
+from mri_interpolation_tpu_torch.metrics import evaluate_reconstruction
+from mri_interpolation_tpu_torch.models import make_hash_mlp
+from mri_interpolation_tpu_torch.train import TrainConfig, Trainer
+
+REPO = Path(__file__).resolve().parents[1]
+PORT_DIR = REPO / "mri_interpolation_tpu_torch"
+FORBIDDEN = ("jax", "jaxlib", "optax", "flax", "mri_interpolation_tpu")
+PORT_FILES = sorted(PORT_DIR.rglob("*.py")) + [REPO / "chip_smoke.py"]
+TINY = dict(base_resolution=(2, 2, 2), finest_resolution=(4, 4, 4), dim_hidden=4)
+
+
+def _imported_modules(path: Path):
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Import):
+            yield from (alias.name for alias in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(REPO)))
+def test_no_jax_import(path):
+    for module in _imported_modules(path):
+        top = module.split(".")[0]
+        assert top not in FORBIDDEN, f"{path.relative_to(REPO)} imports {module}"
+
+
+def test_import_loads_no_jax():
+    names = [m.name for m in pkgutil.walk_packages(port.__path__, "mri_interpolation_tpu_torch.")]
+    code = ("import importlib, sys\n"
+            f"for name in {names!r}: importlib.import_module(name)\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'mri_interpolation_tpu'))\n"
+            "print(len(sys.modules)); assert not bad, bad\n")
+    env = {**os.environ, "PYTHONPATH": str(REPO)}
+    done = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True, text=True,
+                          timeout=120)
+    assert done.returncode == 0, done.stderr
+    assert len(names) >= 20
+
+
+def test_no_pytorch_extension_builder():
+    for path in PORT_FILES:
+        text = path.read_text()
+        assert "cpp_extension" not in text and "torch.compile" not in text, path
+    for src in (PORT_DIR / "ops" / "csrc").glob("*.cu"):
+        assert "#include <torch" not in src.read_text() and "#include <ATen" not in src.read_text()
+
+
+def test_build_directory_is_ignored():
+    lines = (REPO / ".gitignore").read_text().splitlines()
+    assert "mri_interpolation_tpu_torch/ops/_build/" in lines and "chiprun_out/" in lines
+
+
+@pytest.fixture
+def no_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_resolve_device(no_card):
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        port_device.resolve_device()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        port_device.resolve_device("cuda")
+    assert port_device.resolve_device("cpu") == torch.device("cpu")
+    with pytest.raises(ValueError, match="unsupported"):
+        port_device.resolve_device("meta")
+
+
+def test_entry_points_raise_without_a_card(no_card, tmp_path):
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_hash_mlp(3, **TINY)
+    model = make_hash_mlp(3, device="cpu", **TINY)
+    coords = np.random.default_rng(0).random((64, 3), dtype=np.float32)
+    values = coords[:, :1].copy()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Trainer(TrainConfig(batch_size=16)).fit(model, coords, values)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        evaluate_grid(model, (4, 4, 4))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        evaluate_reconstruction(np.zeros((8, 8)), np.zeros((8, 8)))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        launcher.run(RunConfig(image_path=str(tmp_path / "absent.nii.gz"), output_root=str(tmp_path)))
+    assert list(tmp_path.iterdir()) == []  # nothing was written before the refusal
+    # the CPU, when asked for, works
+    Trainer(TrainConfig(batch_size=16)).fit(model, coords, values, device="cpu")
+    assert evaluate_grid(model, (4, 4, 4), device="cpu").shape == (4, 4, 4)
+
+
+def test_evaluate_grid_refuses_a_model_on_another_device():
+    model = make_hash_mlp(3, device="cpu", **TINY)
+    with pytest.raises(ValueError, match="model is on"):
+        evaluate_grid(model.to("meta"), (4, 4, 4), device="cpu")
+
+
+def _run_chip_smoke(cwd: Path):
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["CUDA_VISIBLE_DEVICES"] = ""  # no card, whatever the machine holds
+    return subprocess.run([sys.executable, "chip_smoke.py"], cwd=cwd, env=env, capture_output=True,
+                          text=True, timeout=120)
+
+
+def test_chip_smoke_fails_without_a_card():
+    done = _run_chip_smoke(REPO)
+    assert done.returncode != 0
+    assert '"ok"' not in done.stdout
+
+
+def test_chip_smoke_fails_alone(tmp_path):
+    (tmp_path / "chip_smoke.py").write_text((REPO / "chip_smoke.py").read_text())
+    done = _run_chip_smoke(tmp_path)
+    assert done.returncode != 0
+    assert '"ok"' not in done.stdout
