@@ -1,21 +1,28 @@
-"""Run the default pipeline: load -> fit -> reconstruct -> interpolate -> report.
+"""The launcher: load -> fit -> reconstruct -> interpolate -> report.
 
-Port of the default branch of ``mri_interpolation_tpu/launcher.py:run``:
-load a NIfTI volume, fit the configured model with ``Trainer.fit``,
-reconstruct the volume on its own grid (``pred.nii.gz``), score PSNR/SSIM,
-evaluate each ``interp_shapes`` grid (``interpolation{shape}.nii.gz``,
-rank-adapted to the volume), and write ``config.txt``, ``metrics.json`` and
-a ``torch.save`` checkpoint into a versioned run directory. Everything runs
-on ``cuda`` unless ``device="cpu"`` is passed.
+Port of the default branch of ``mri_interpolation_tpu/launcher.py``: load a
+NIfTI volume, fit the configured model with ``Trainer.fit``, reconstruct the
+volume on its own grid (``pred.nii.gz``), score PSNR/SSIM, evaluate each
+``interp_shapes`` grid (``interpolation{shape}.nii.gz``, rank-adapted to the
+volume), and write ``config.txt``, ``metrics.json`` and a ``torch.save``
+checkpoint into a versioned run directory. Before a run it checks the
+kernels' build with the probe kernel (``ops.probe.check_build``). Everything
+runs on ``cuda`` unless ``device="cpu"`` (``--device cpu``) is passed.
+
+Usage:
+    python -m mri_interpolation_tpu_torch.launcher --image_path vol.nii.gz \
+        [--config_preset siren] [--enco_config_path cfg.json] [--epochs 10] ...
 """
 
 from __future__ import annotations
 
+import argparse
 import dataclasses
+import inspect
 import json
 import os
 import time
-from typing import Optional
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
@@ -24,9 +31,25 @@ from . import configs
 from .configs import RunConfig
 from .device import DeviceLike, resolve_device
 
-__all__ = ["run", "make_run_dir", "build_model"]
+__all__ = ["build_parser", "run", "main", "make_run_dir", "build_model"]
 
-_HASH_MODELS = ("hash_mlp", "HashMLP")
+_HASH_MODELS = ("hash_mlp", "HashMLP", "TcnnHashMLP")
+
+
+def build_parser() -> argparse.ArgumentParser:
+    parser = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
+    parser.add_argument("--enco_config_path", type=str, default=None,
+                        help="path to a tcnn-style JSON encoding config")
+    parser.add_argument("--config_yaml", type=str, default=None,
+                        help="YAML run configs are not ported yet (ROADMAP.md, queue 1)")
+    parser.add_argument("--config_preset", type=str, default="hash", choices=["hash", "siren"],
+                        help="base config preset")
+    parser.add_argument("--plan", action="store_true",
+                        help="the capacity plan is not ported yet (ROADMAP.md, queue 1)")
+    parser.add_argument("--device", type=str, default=None,
+                        help="device to run on: cuda (the default) or cpu")
+    configs.add_config_flags(parser, RunConfig())
+    return parser
 
 
 def make_run_dir(root: str) -> str:
@@ -40,10 +63,14 @@ def make_run_dir(root: str) -> str:
 
 
 def build_model(cfg: RunConfig, dim_in: int, device: torch.device):
+    """The configured model on ``device``; each factory gets only the keyword
+    arguments its signature takes."""
     from .models import get_model_factory
 
     factory = get_model_factory(cfg.model_class)
-    return factory(**{**cfg.model_kwargs(), "dim_in": dim_in}, device=device)
+    accepted = inspect.signature(factory).parameters
+    kwargs = {k: v for k, v in {**cfg.model_kwargs(), "dim_in": dim_in}.items() if k in accepted}
+    return factory(**kwargs, device=device)
 
 
 def _check_ported(cfg: RunConfig) -> None:
@@ -61,10 +88,12 @@ def run(cfg: RunConfig, run_dir: Optional[str] = None, device: DeviceLike = None
     from .infer import evaluate_grid
     from .io import load_volume, nifti
     from .metrics import evaluate_reconstruction
+    from .ops.probe import check_build
     from .train import TrainConfig, Trainer
 
     dev = resolve_device(device)
     _check_ported(cfg)
+    check_build(dev)
     cfg = dataclasses.replace(cfg)
     run_dir = run_dir or make_run_dir(cfg.output_root)
 
@@ -140,3 +169,24 @@ def run(cfg: RunConfig, run_dir: Optional[str] = None, device: DeviceLike = None
         torch.save({"step": result.steps, "model": model.state_dict()},
                    os.path.join(ckpt_dir, f"step_{result.steps}.pt"))
     return summary
+
+
+def main(argv: Optional[Sequence[str]] = None) -> dict:
+    """CLI entry: preset -> JSON config -> flags -> :func:`run`; prints the
+    summary as JSON and returns it."""
+    args = build_parser().parse_args(argv)
+    if args.config_yaml:
+        raise NotImplementedError("--config_yaml is not ported yet: ROADMAP.md, queue 1")
+    if args.plan:
+        raise NotImplementedError("--plan is not ported yet: ROADMAP.md, queue 1")
+    cfg = configs.default_siren_config() if args.config_preset == "siren" else configs.default_hash_config()
+    if args.enco_config_path:
+        cfg = configs.apply_enco_config(cfg, configs.load_json_config(args.enco_config_path))
+    cfg = configs.override_from_args(cfg, args)
+    summary = run(cfg, device=args.device)
+    print(json.dumps(summary, indent=2))
+    return summary
+
+
+if __name__ == "__main__":
+    main()

@@ -8,12 +8,27 @@ and the layer computes ``x @ w + b``.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
 
-__all__ = ["Model", "Dense", "BatchNorm", "dense", "batchnorm_apply", "dropout"]
+__all__ = ["Model", "Dense", "BatchNorm", "uniform_init", "dense_init", "dense", "batchnorm_apply",
+           "dropout"]
+
+
+def uniform_init(shape: Tuple[int, ...], bound: float,
+                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """float32 U(-bound, bound) of ``shape``, drawn on the CPU from ``generator``."""
+    return torch.empty(shape, dtype=torch.float32).uniform_(-bound, bound, generator=generator)
+
+
+def dense_init(dim_in: int, dim_out: int, generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
+    """Linear layer parameters {"w": (dim_in, dim_out), "b": (dim_out,)},
+    U(-1/sqrt(dim_in), 1/sqrt(dim_in)) as torch's nn.Linear init."""
+    bound = 1.0 / dim_in**0.5
+    return {"w": uniform_init((dim_in, dim_out), bound, generator),
+            "b": uniform_init((dim_out,), bound, generator)}
 
 
 def dense(w: torch.Tensor, b: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
@@ -58,14 +73,17 @@ def dropout(x: torch.Tensor, rate: float, train: bool,
 
 
 class Dense(nn.Module):
-    """Linear layer in the (dim_in, dim_out) layout, initialised
-    U(-1/sqrt(dim_in), 1/sqrt(dim_in)) like torch's nn.Linear."""
+    """Linear layer in the (dim_in, dim_out) layout holding the parameters
+    ``params`` ({"w", "b"}, e.g. from :func:`dense_init`)."""
 
-    def __init__(self, dim_in: int, dim_out: int, generator: Optional[torch.Generator] = None):
+    def __init__(self, params: Dict[str, torch.Tensor]):
         super().__init__()
-        bound = 1.0 / dim_in**0.5
-        self.w = nn.Parameter(torch.empty(dim_in, dim_out).uniform_(-bound, bound, generator=generator))
-        self.b = nn.Parameter(torch.empty(dim_out).uniform_(-bound, bound, generator=generator))
+        self.w = nn.Parameter(params["w"])
+        self.b = nn.Parameter(params["b"])
+
+    @property
+    def params(self) -> Dict[str, torch.Tensor]:
+        return {"w": self.w, "b": self.b}
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return dense(self.w, self.b, x)

@@ -2,12 +2,16 @@
 
 Port of ``mri_interpolation_tpu/models/hash_mlp.py`` (the flagship model).
 The encoder runs the hash-encode kernel pair on the card
-(``ops/hash_encode.py``) and its plain version on the CPU. The decoder is
-plain tensor code:
+(``ops/hash_encode.py``) and its plain version on the CPU. The decoder:
 
 - ``"norm"``: every block, the last one to dim_out included, is
-  Linear -> BatchNorm -> act -> Dropout (the reference's quirk);
-- ``"norm_proper"``: the same, but the final Linear is plain.
+  Linear -> BatchNorm -> act -> Dropout (the reference's quirk), in plain
+  tensor code;
+- ``"norm_proper"``: the same, but the final Linear is plain;
+- ``"relu_plain"``: the tcnn FullyFusedMLP shape, ReLU between the layers
+  and an identity output, no norm and no dropout. The whole stack is one
+  ``ops.fused_mlp.FusedMLP`` (the fused-MLP kernel pair on the card), whose
+  backward hands the input cotangent on to the hash-encode table gradient.
 
 GELU is the tanh approximation, as ``jax.nn.gelu``'s default.
 """
@@ -22,8 +26,9 @@ from torch import nn
 
 from ..device import DeviceLike, resolve_device
 from ..encodings.hashgrid import HashGridEncoding
+from ..ops.fused_mlp import fused_mlp_apply
 from ..ops.hash_encode import HashEncode
-from .core import BatchNorm, Dense, Model, dropout
+from .core import BatchNorm, Dense, Model, dense_init, dropout
 
 __all__ = ["HashGridEncoder", "HashMLP", "make_hash_mlp"]
 
@@ -53,9 +58,11 @@ class HashMLP(Model):
         super().__init__(encoder.geometry.input_dim, widths[-1])
         n_layers = len(widths) - 1
         self.dropout_rate = dropout_rate
+        self.fused = decoder == "relu_plain"
         self.act = _ACTS[activation]
-        self.layers = nn.ModuleList(Dense(widths[i], widths[i + 1], generator) for i in range(n_layers))
-        n_normed = n_layers if decoder == "norm" else n_layers - 1
+        self.layers = nn.ModuleList(Dense(dense_init(widths[i], widths[i + 1], generator))
+                                    for i in range(n_layers))
+        n_normed = {"norm": n_layers, "norm_proper": n_layers - 1, "relu_plain": 0}[decoder]
         self.bn = nn.ModuleList(BatchNorm(widths[i + 1]) for i in range(n_normed))
         self.encoder = encoder
 
@@ -64,6 +71,8 @@ class HashMLP(Model):
 
     def decode(self, z: torch.Tensor) -> torch.Tensor:
         """Dropout draws from torch's default generator of z's device."""
+        if self.fused:
+            return fused_mlp_apply([layer.params for layer in self.layers], z, "relu")
         for i, layer in enumerate(self.layers):
             z = layer(z)
             if i < len(self.bn):
@@ -101,10 +110,7 @@ def make_hash_mlp(
     drawn on the CPU from ``torch.Generator().manual_seed(seed)`` and moved
     to ``device`` (``cuda`` unless ``"cpu"`` is passed)."""
     dev = resolve_device(device)
-    if decoder == "relu_plain":
-        raise NotImplementedError(
-            "decoder='relu_plain' (the fused-MLP kernel pair) is not ported yet: ROADMAP.md, queue 1")
-    if decoder not in ("norm", "norm_proper"):
+    if decoder not in ("norm", "norm_proper", "relu_plain"):
         raise ValueError(f"unknown decoder {decoder!r}")
     if level_anneal_steps > 0:
         raise NotImplementedError("level_anneal_steps is not ported yet: ROADMAP.md, queue 1")

@@ -2,7 +2,12 @@
 
 - hash_encode: multiresolution hash-encode forward and table gradient
   (replaces the Pallas ``_forward_kernel`` / ``_backward_kernel`` of
-  ``mri_interpolation_tpu/ops/pallas/hash_encode.py``).
+  ``mri_interpolation_tpu/ops/pallas/hash_encode.py``);
+- fused_mlp: the fused MLP stack's forward and backward (replaces the Pallas
+  ``_forward_kernel`` / ``_backward_kernel`` of
+  ``mri_interpolation_tpu/ops/pallas/fused_mlp.py``);
+- probe: y = 2 * x, the build check (replaces the Pallas probe ``trivial`` of
+  ``scripts/bench_pallas_exec.py``).
 
 Sources live in ``csrc/`` and are built by ``build.py`` at first use.
 """

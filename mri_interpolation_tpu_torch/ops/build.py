@@ -21,11 +21,14 @@ import tempfile
 from pathlib import Path
 from typing import Dict, Optional
 
-__all__ = ["SOURCES", "BUILD_DIR", "NVCC_FLAGS", "find_nvcc", "compile_sources", "load", "build_logs"]
+import torch
+
+__all__ = ["SOURCES", "BUILD_DIR", "NVCC_FLAGS", "find_nvcc", "compile_sources", "load", "build_logs",
+           "check_tensor"]
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-SOURCES = {"hash_encode": _CSRC / "hash_encode.cu"}
+SOURCES = {name: _CSRC / f"{name}.cu" for name in ("hash_encode", "fused_mlp", "probe")}
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -107,3 +110,16 @@ def build_logs() -> Dict[str, str]:
     sources this process compiled."""
     return dict(_logs)
 
+
+
+def check_tensor(name: str, t: torch.Tensor, shape: tuple, device: torch.device) -> None:
+    """What every kernel wrapper checks before it passes a pointer: the
+    device, float32, the shape and contiguity; raises otherwise."""
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != torch.float32:
+        raise TypeError(f"{name} must be float32, got {t.dtype}")
+    if tuple(t.shape) != shape:
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")

@@ -1,0 +1,328 @@
+"""Fused MLP stack, forward and backward: CUDA kernels and plain versions.
+
+Port of ``mri_interpolation_tpu/ops/pallas/fused_mlp.py`` (the tcnn
+FullyFusedMLP counterpart: ``fused_mlp_forward``/``fused_mlp_apply`` over a
+``[{"w", "b"}, ...]`` layer list, and ``fused_siren_forward``/
+``fused_siren_apply`` over the SIREN tree ``{"layers": [...], "last": {...}}``).
+The kernels are in ``csrc/fused_mlp.cu`` (built by ``ops/build.py``, bound
+with ctypes).
+
+Layers keep the JAX layout: W_l is (dim_in, dim_out), b_l is (dim_out,), and
+layer l computes ``act_l(h @ W_l + b_l)``. An activation is one of
+``("sine", w0)`` (sin(w0 z)), ``("relu",)``, ``("gelu",)`` (the tanh
+approximation) and ``("id",)``, exactly as the JAX module's ``_act`` /
+``_act_grad``.
+
+Dispatch: CPU tensors go to the plain PyTorch versions
+(:func:`mlp_forward_reference`, :func:`mlp_backward_reference`); CUDA tensors
+go to the kernels, or the wrapper raises. Each wrapper adds one to its entry
+of :data:`LAUNCHES` per call that launches its kernel(s), and nowhere else.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import List, Optional, Sequence, Tuple
+
+import torch
+
+from . import build
+
+__all__ = [
+    "LAUNCHES",
+    "MAX_LAYERS",
+    "reset_launches",
+    "siren_acts",
+    "mlp_acts",
+    "act_apply",
+    "act_grad",
+    "mlp_forward",
+    "mlp_backward",
+    "mlp_forward_reference",
+    "mlp_backward_reference",
+    "shared_bytes",
+    "FusedMLP",
+    "fused_mlp_forward",
+    "fused_mlp_apply",
+    "fused_siren_forward",
+    "fused_siren_apply",
+]
+
+LAUNCHES = {"fused_mlp_forward": 0, "fused_mlp_backward": 0}
+
+MAX_LAYERS = 16  # csrc/fused_mlp.cu kMaxLayers
+_ACT_CODES = {"id": 0, "relu": 1, "gelu": 2, "sine": 3}
+# csrc/fused_mlp.cu: tile rows, staged chunk (K x padded N), Hopper's per-block limit
+_TILE_ROWS, _CHUNK_K, _CHUNK_LD = 32, 32, 132
+_MAX_SHARED_BYTES = 232448
+# weight-gradient blocks aimed for (about two per SM of an H100) and the
+# fewest rows one of them sums
+_GRAD_BLOCKS, _MIN_SLICE_ROWS = 264, 256
+
+_SQRT_2_OVER_PI = math.sqrt(2.0 / math.pi)
+
+Act = Tuple  # ("sine", w0) | ("relu",) | ("gelu",) | ("id",)
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def siren_acts(n_layers: int, w0: float, w0_initial: float) -> Tuple[Act, ...]:
+    """Layer 0 sine(w0_initial), hidden layers sine(w0), identity output."""
+    return tuple([("sine", float(w0_initial))] + [("sine", float(w0))] * (n_layers - 1) + [("id",)])
+
+
+def mlp_acts(n_hidden: int, activation: str) -> Tuple[Act, ...]:
+    """``activation`` between layers, identity output."""
+    return tuple([(activation,)] * n_hidden + [("id",)])
+
+
+# ---------------------------------------------------------------------------
+# plain PyTorch versions (the CPU path, and the card-side yardstick)
+
+
+def act_apply(a: Act, z: torch.Tensor) -> torch.Tensor:
+    if a[0] == "sine":
+        return torch.sin(a[1] * z)
+    if a[0] == "relu":
+        return torch.clamp_min(z, 0.0)
+    if a[0] == "gelu":
+        u = _SQRT_2_OVER_PI * (z + 0.044715 * (z * z * z))
+        return 0.5 * z * (1.0 + torch.tanh(u))
+    return z
+
+
+def act_grad(a: Act, z: torch.Tensor) -> torch.Tensor:
+    """d act / d z at the pre-activation z."""
+    if a[0] == "sine":
+        return a[1] * torch.cos(a[1] * z)
+    if a[0] == "relu":
+        return (z > 0.0).to(z.dtype)
+    if a[0] == "gelu":
+        u = _SQRT_2_OVER_PI * (z + 0.044715 * (z * z * z))
+        t = torch.tanh(u)
+        du = _SQRT_2_OVER_PI * (1.0 + 3.0 * 0.044715 * (z * z))
+        return 0.5 * (1.0 + t) + 0.5 * z * (1.0 - t * t) * du
+    return torch.ones_like(z)
+
+
+def mlp_forward_reference(weights: Sequence[torch.Tensor], biases: Sequence[torch.Tensor],
+                          x: torch.Tensor, acts: Sequence[Act]) -> torch.Tensor:
+    h = x
+    for w, b, a in zip(weights, biases, acts):
+        h = act_apply(a, h @ w + b)
+    return h
+
+
+def mlp_backward_reference(weights: Sequence[torch.Tensor], biases: Sequence[torch.Tensor],
+                           x: torch.Tensor, g: torch.Tensor, acts: Sequence[Act], need_dx: bool
+                           ) -> Tuple[List[torch.Tensor], List[torch.Tensor], Optional[torch.Tensor]]:
+    """(dW per layer, db per layer, dx or None) for upstream g, as the kernel
+    computes them: recompute the forward keeping every z, then
+    dz = g * act'(z) and, layer by layer downwards, dW = h^T dz,
+    db = sum(dz), dz = (dz W^T) * act'(z_prev); dx = dz_0 W_0^T."""
+    hs, zs = [x], []
+    for w, b, a in zip(weights, biases, acts):
+        zs.append(hs[-1] @ w + b)
+        hs.append(act_apply(a, zs[-1]))
+    n_layers = len(weights)
+    dws: List[Optional[torch.Tensor]] = [None] * n_layers
+    dbs: List[Optional[torch.Tensor]] = [None] * n_layers
+    dx = None
+    dz = g * act_grad(acts[-1], zs[-1])
+    for l in range(n_layers - 1, -1, -1):
+        dws[l] = hs[l].T @ dz
+        dbs[l] = dz.sum(dim=0)
+        if l > 0:
+            dz = (dz @ weights[l].T) * act_grad(acts[l - 1], zs[l - 1])
+        elif need_dx:
+            dx = dz @ weights[0].T
+    return dws, dbs, dx
+
+
+# ---------------------------------------------------------------------------
+# kernel wrappers
+
+
+def _library() -> ctypes.CDLL:
+    lib = build.load("fused_mlp")
+    if lib.fused_mlp_forward.argtypes is None:
+        p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+        lib.fused_mlp_forward.argtypes = [p, p, i64, i32, p, p, p, p, p, p]
+        lib.fused_mlp_backward.argtypes = [p, p, p, p, p, i64, i64, i32, p, p, p, p, p, p, p, p]
+        for fn in (lib.fused_mlp_forward, lib.fused_mlp_backward):
+            fn.restype = ctypes.c_int
+        lib.fused_mlp_error_string.argtypes = [ctypes.c_int]
+        lib.fused_mlp_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def shared_bytes(dims: Sequence[int]) -> int:
+    """Dynamic shared memory of a tile kernel for the widths ``dims``: two
+    32-row activation buffers of the widest layer (rounded up to 32) and one
+    staged weight chunk."""
+    ld = -(-max(dims) // _CHUNK_K) * _CHUNK_K
+    return 4 * (2 * _TILE_ROWS * ld + _CHUNK_K * _CHUNK_LD)
+
+
+def _chain(weights, biases, x, acts) -> List[int]:
+    """Validate the stack for the kernels; return the widths [K_0, N_0, ..., N_{L-1}]."""
+    n_layers = len(weights)
+    if not 1 <= n_layers <= MAX_LAYERS or len(biases) != n_layers or len(acts) != n_layers:
+        raise ValueError(f"the kernels take 1 to {MAX_LAYERS} layers with one bias and one "
+                         f"activation each; got {n_layers} weights, {len(biases)} biases, {len(acts)} acts")
+    dims = [int(weights[0].shape[0])] + [int(w.shape[1]) for w in weights]
+    for l, (w, b, a) in enumerate(zip(weights, biases, acts)):
+        build.check_tensor(f"weights[{l}]", w, (dims[l], dims[l + 1]), x.device)
+        build.check_tensor(f"biases[{l}]", b, (dims[l + 1],), x.device)
+        if a[0] not in _ACT_CODES:
+            raise ValueError(f"unknown activation {a!r}")
+    build.check_tensor("x", x, (x.shape[0], dims[0]), x.device)
+    if shared_bytes(dims) > _MAX_SHARED_BYTES:
+        raise ValueError(f"widths {dims} need {shared_bytes(dims)} bytes of shared memory per block; "
+                         f"the card gives {_MAX_SHARED_BYTES}")
+    return dims
+
+
+def _layer_arrays(dims, acts, weights, biases):
+    n = len(weights)
+    return ((ctypes.c_int32 * (n + 1))(*dims),
+            (ctypes.c_int32 * n)(*(_ACT_CODES[a[0]] for a in acts)),
+            (ctypes.c_float * n)(*(float(a[1]) if a[0] == "sine" else 0.0 for a in acts)),
+            (ctypes.c_void_p * n)(*(w.data_ptr() for w in weights)),
+            (ctypes.c_void_p * n)(*(b.data_ptr() for b in biases)))
+
+
+def _raise_on(lib: ctypes.CDLL, fn_name: str, err: int) -> None:
+    if err != 0:
+        msg = lib.fused_mlp_error_string(err).decode()
+        raise RuntimeError(f"{fn_name} launch failed: {msg} (cudaError {err})")
+
+
+def _rows_per_slice(batch: int, dims: Sequence[int]) -> int:
+    """Rows one weight-gradient block sums: enough slices of the batch that
+    the blocks fill the card, none of fewer than 256 rows, a multiple of 32."""
+    tiles = sum(-(-k // _CHUNK_K) * -(-n // 128) for k, n in zip(dims[:-1], dims[1:]))
+    slices = max(1, min(-(-_GRAD_BLOCKS // tiles), batch // _MIN_SLICE_ROWS))
+    rows = -(-batch // slices)
+    return -(-rows // _CHUNK_K) * _CHUNK_K
+
+
+def _forward_kernel(weights, biases, x, acts) -> torch.Tensor:
+    dims = _chain(weights, biases, x, acts)
+    n = x.shape[0]
+    out = torch.empty((n, dims[-1]), dtype=torch.float32, device=x.device)
+    lib = _library()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.fused_mlp_forward(x.data_ptr(), out.data_ptr(), n, len(weights),
+                                    *_layer_arrays(dims, acts, weights, biases), stream)
+    _raise_on(lib, "fused_mlp_forward", err)
+    if n > 0:
+        LAUNCHES["fused_mlp_forward"] += 1
+    return out
+
+
+def _backward_kernel(weights, biases, x, g, acts, need_dx):
+    dims = _chain(weights, biases, x, acts)
+    n = x.shape[0]
+    build.check_tensor("g", g, (n, dims[-1]), x.device)
+    dws = [torch.zeros_like(w) for w in weights]
+    dbs = [torch.zeros_like(b) for b in biases]
+    dx = torch.empty((n, dims[0]), dtype=torch.float32, device=x.device) if need_dx else None
+    rows = -(-n // _TILE_ROWS) * _TILE_ROWS
+    zs = torch.empty((rows, sum(dims[1:])), dtype=torch.float32, device=x.device)
+    dzs = torch.empty_like(zs)
+    lib = _library()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.fused_mlp_backward(
+            x.data_ptr(), g.data_ptr(), dx.data_ptr() if need_dx else None, zs.data_ptr(), dzs.data_ptr(),
+            n, _rows_per_slice(max(n, 1), dims), len(weights),
+            *_layer_arrays(dims, acts, weights, biases),
+            (ctypes.c_void_p * len(dws))(*(t.data_ptr() for t in dws)),
+            (ctypes.c_void_p * len(dbs))(*(t.data_ptr() for t in dbs)), stream)
+    _raise_on(lib, "fused_mlp_backward", err)
+    if n > 0:
+        LAUNCHES["fused_mlp_backward"] += 1
+    return dws, dbs, dx
+
+
+def mlp_forward(weights: Sequence[torch.Tensor], biases: Sequence[torch.Tensor], x: torch.Tensor,
+                acts: Sequence[Act]) -> torch.Tensor:
+    """The stack applied to x (B, K_0) -> (B, N_L). CUDA tensors launch the
+    forward kernel; CPU tensors take the plain version."""
+    if not x.is_cuda:
+        return mlp_forward_reference(weights, biases, x, acts)
+    return _forward_kernel(list(weights), list(biases), x, tuple(acts))
+
+
+def mlp_backward(weights: Sequence[torch.Tensor], biases: Sequence[torch.Tensor], x: torch.Tensor,
+                 g: torch.Tensor, acts: Sequence[Act], need_dx: bool = False):
+    """(dW list, db list, dx or None) for upstream g (B, N_L). CUDA tensors
+    launch the backward kernels; CPU tensors take the plain version."""
+    if not (x.is_cuda or g.is_cuda):
+        return mlp_backward_reference(weights, biases, x, g, acts, need_dx)
+    return _backward_kernel(list(weights), list(biases), x, g, tuple(acts), need_dx)
+
+
+class FusedMLP(torch.autograd.Function):
+    """Differentiable stack: ``FusedMLP.apply(x, acts, w_0, b_0, ..., w_L, b_L)``.
+    The forward launches kernel 5, the backward kernel 6, which returns dW
+    and db for every layer and dx only when x needs a gradient (the JAX
+    ``need_dx``): SIREN's coordinates get none, an encoder's features do."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, acts: Tuple[Act, ...], *params: torch.Tensor) -> torch.Tensor:
+        x = x.contiguous()
+        ctx.acts = acts
+        ctx.save_for_backward(x, *params)
+        return mlp_forward(params[0::2], params[1::2], x, acts)
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        x, *params = ctx.saved_tensors
+        need_dx = ctx.needs_input_grad[0]
+        dws, dbs, dx = mlp_backward(params[0::2], params[1::2], x, g.contiguous(), ctx.acts, need_dx)
+        grads = [t for pair in zip(dws, dbs) for t in pair]
+        grads = [t if ctx.needs_input_grad[2 + i] else None for i, t in enumerate(grads)]
+        return (dx if need_dx else None, None, *grads)
+
+
+def _flat(layers) -> List[torch.Tensor]:
+    return [t for layer in layers for t in (layer["w"], layer["b"])]
+
+
+def _siren_layers(params, n_layers: int):
+    return [params["layers"][i] for i in range(n_layers)] + [params["last"]]
+
+
+def fused_mlp_forward(layers, x: torch.Tensor, activation: str = "relu") -> torch.Tensor:
+    """Inference forward over a ``[{"w", "b"}, ...]`` layer list:
+    ``activation`` between layers, identity output (no autograd)."""
+    acts = mlp_acts(len(layers) - 1, activation)
+    with torch.no_grad():
+        return mlp_forward([l["w"] for l in layers], [l["b"] for l in layers], x, acts)
+
+
+def fused_mlp_apply(layers, x: torch.Tensor, activation: str = "relu") -> torch.Tensor:
+    """Differentiable :func:`fused_mlp_forward` (wrt the layers, and wrt x
+    when x needs a gradient)."""
+    return FusedMLP.apply(x, mlp_acts(len(layers) - 1, activation), *_flat(layers))
+
+
+def fused_siren_forward(params, x: torch.Tensor, n_layers: int, w0: float, w0_initial: float) -> torch.Tensor:
+    """Inference forward of the SIREN tree ``{"layers": [...], "last": {...}}``."""
+    layers = _siren_layers(params, n_layers)
+    with torch.no_grad():
+        return mlp_forward([l["w"] for l in layers], [l["b"] for l in layers], x,
+                           siren_acts(n_layers, w0, w0_initial))
+
+
+def fused_siren_apply(params, x: torch.Tensor, n_layers: int, w0: float, w0_initial: float) -> torch.Tensor:
+    """Differentiable fused SIREN stack; the same function as
+    ``models.siren._siren_forward``."""
+    return FusedMLP.apply(x, siren_acts(n_layers, w0, w0_initial), *_flat(_siren_layers(params, n_layers)))

@@ -77,17 +77,6 @@ def hash_encode_table_grad_reference(enc: HashGridEncoding, x: torch.Tensor, g: 
 # kernel wrappers
 
 
-def _check(name: str, t: torch.Tensor, shape: tuple, device: torch.device) -> None:
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != torch.float32:
-        raise TypeError(f"{name} must be float32, got {t.dtype}")
-    if tuple(t.shape) != shape:
-        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-
-
 def _check_geometry(enc: HashGridEncoding) -> None:
     if enc.total_size * enc.n_features_per_level >= 2**31:
         raise ValueError("the CUDA kernels index the table with int32: total_size * F must be < 2^31")
@@ -116,8 +105,8 @@ def hash_encode_forward(enc: HashGridEncoding, table: torch.Tensor, x: torch.Ten
     if not (x.is_cuda or table.is_cuda):
         return hash_encode_reference(enc, table, x)
     n = x.shape[0]
-    _check("x", x, (n, enc.input_dim), table.device)
-    _check("table", table, (enc.total_size, enc.n_features_per_level), table.device)
+    build.check_tensor("x", x, (n, enc.input_dim), table.device)
+    build.check_tensor("table", table, (enc.total_size, enc.n_features_per_level), table.device)
     _check_geometry(enc)
     out = torch.empty((n, enc.output_dim), dtype=torch.float32, device=x.device)
     _launch("hash_encode_forward", x, table, out, enc)
@@ -130,8 +119,8 @@ def hash_encode_table_grad(enc: HashGridEncoding, x: torch.Tensor, g: torch.Tens
     if not (x.is_cuda or g.is_cuda):
         return hash_encode_table_grad_reference(enc, x, g)
     n = x.shape[0]
-    _check("x", x, (n, enc.input_dim), g.device)
-    _check("g", g, (n, enc.output_dim), g.device)
+    build.check_tensor("x", x, (n, enc.input_dim), g.device)
+    build.check_tensor("g", g, (n, enc.output_dim), g.device)
     _check_geometry(enc)
     dtable = torch.zeros((enc.total_size, enc.n_features_per_level), dtype=torch.float32, device=g.device)
     _launch("hash_encode_table_grad", x, g, dtable, enc)

@@ -10,8 +10,9 @@ Semantics kept: Adam with torch's weight decay (L2 added to the gradient
 before the moments, as the JAX optimizer chain does), ``drop_last`` (default
 True) and, when it is False, the final batch padded by wrapping around to
 the permutation's start; ``shuffle=False`` walks the data in order.
-Cosine schedules, the tcnn Adam variant and gradient accumulation are not
-ported yet (ROADMAP.md, queue 1) and raise.
+``optimizer="adam_tcnn"`` is tcnn's Adam (b2 0.99, eps 1e-15). Cosine
+schedules and gradient accumulation are not ported yet (ROADMAP.md, queue 1)
+and raise.
 """
 
 from __future__ import annotations
@@ -68,18 +69,22 @@ class TrainResult:
         return float(steps_per_epoch / max(float(np.median(self.epoch_times_s[1:])), 1e-9))
 
 
+# optimizer name -> (betas, eps): torch's Adam defaults, and tcnn's Adam
+# config (config/hash_config.json of the reference: beta2 0.99, eps 1e-15)
+_ADAM = {"adam": ((0.9, 0.999), 1e-8), "adam_tcnn": ((0.9, 0.99), 1e-15)}
+
+
 def make_optimizer(cfg: TrainConfig, params: Iterable[torch.nn.Parameter]) -> torch.optim.Optimizer:
-    """torch Adam (b1 0.9, b2 0.999, eps 1e-8) with L2 weight decay."""
-    if cfg.optimizer == "adam_tcnn":
-        raise NotImplementedError("optimizer='adam_tcnn' is not ported yet: ROADMAP.md, queue 1")
-    if cfg.optimizer != "adam":
+    """torch Adam with L2 weight decay: b1 0.9, b2 0.999, eps 1e-8 for
+    ``"adam"``; b1 0.9, b2 0.99, eps 1e-15 for ``"adam_tcnn"``."""
+    if cfg.optimizer not in _ADAM:
         raise KeyError(f"unknown optimizer {cfg.optimizer!r}")
     if cfg.lr_schedule is not None:
         raise NotImplementedError(f"lr_schedule={cfg.lr_schedule!r} is not ported yet: ROADMAP.md, queue 1")
     if cfg.accumulate_grad_batches > 1:
         raise NotImplementedError("accumulate_grad_batches > 1 is not ported yet: ROADMAP.md, queue 1")
-    return torch.optim.Adam(params, lr=cfg.lr, betas=(0.9, 0.999), eps=1e-8,
-                            weight_decay=cfg.weight_decay)
+    betas, eps = _ADAM[cfg.optimizer]
+    return torch.optim.Adam(params, lr=cfg.lr, betas=betas, eps=eps, weight_decay=cfg.weight_decay)
 
 
 class Trainer:

@@ -107,8 +107,7 @@ def test_init_is_seeded_and_in_range():
     assert float(a.layers[0].w.detach().abs().max()) <= bound
 
 
-@pytest.mark.parametrize("kwargs", [dict(decoder="relu_plain"), dict(level_anneal_steps=10),
-                                    dict(temporal_tv=0.1)])
+@pytest.mark.parametrize("kwargs", [dict(level_anneal_steps=10), dict(temporal_tv=0.1)])
 def test_unported_options_raise(kwargs):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         make_hash_mlp(3, device="cpu", **kwargs)

@@ -20,7 +20,10 @@ from mri_interpolation_tpu_torch import launcher
 from mri_interpolation_tpu_torch.configs import RunConfig
 from mri_interpolation_tpu_torch.infer import evaluate_grid
 from mri_interpolation_tpu_torch.metrics import evaluate_reconstruction
-from mri_interpolation_tpu_torch.models import make_hash_mlp
+from mri_interpolation_tpu_torch.models import make_hash_mlp, make_siren
+from mri_interpolation_tpu_torch.ops import build
+from mri_interpolation_tpu_torch.ops import fused_mlp as fm
+from mri_interpolation_tpu_torch.ops import probe as pr
 from mri_interpolation_tpu_torch.train import TrainConfig, Trainer
 
 REPO = Path(__file__).resolve().parents[1]
@@ -104,6 +107,43 @@ def test_entry_points_raise_without_a_card(no_card, tmp_path):
     # the CPU, when asked for, works
     Trainer(TrainConfig(batch_size=16)).fit(model, coords, values, device="cpu")
     assert evaluate_grid(model, (4, 4, 4), device="cpu").shape == (4, 4, 4)
+
+
+def test_slice_two_entry_points_raise_without_a_card(no_card, tmp_path):
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_siren(3, dim_hidden=8, n_layers=2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_hash_mlp(3, decoder="relu_plain", **TINY)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        pr.check_build()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        launcher.main(["--config_preset", "siren", "--image_path", str(tmp_path / "absent.nii.gz"),
+                       "--output_root", str(tmp_path)])
+    assert list(tmp_path.iterdir()) == []
+    # the CPU, when asked for, works, and launches nothing
+    fm.reset_launches()
+    pr.reset_launches()
+    model = make_siren(3, dim_hidden=8, n_layers=2, device="cpu")
+    assert evaluate_grid(model, (4, 4, 4), lo=-1.0, device="cpu").shape == (4, 4, 4)
+    pr.check_build("cpu")
+    assert fm.LAUNCHES == {"fused_mlp_forward": 0, "fused_mlp_backward": 0} and pr.LAUNCHES == {"probe": 0}
+
+
+def test_kernel_paths_raise_instead_of_falling_back(monkeypatch):
+    """The kernel side of each new wrapper builds its library or raises: with
+    nothing built and no nvcc, it never falls back to the plain version."""
+    monkeypatch.setattr(build, "_loaded", {})
+    monkeypatch.setattr(build, "find_nvcc", lambda: None)
+    ws = [torch.zeros((3, 8)), torch.zeros((8, 1))]
+    bs = [torch.zeros(8), torch.zeros(1)]
+    x, g = torch.zeros((5, 3)), torch.zeros((5, 1))
+    acts = fm.siren_acts(1, 30.0, 30.0)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        fm._forward_kernel(ws, bs, x, acts)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        fm._backward_kernel(ws, bs, x, g, acts, True)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        pr._library()
 
 
 def test_evaluate_grid_refuses_a_model_on_another_device():

@@ -4,7 +4,8 @@ of the port against the JAX package and holds it to its tolerance.
 ``PYTHONPATH=. python tests/test_torch_parity_table.py`` prints the rows as
 the Markdown table kept in PERF.md. Each measurement runs once per process
 (cached), whichever rows read it. The reasons for each tolerance are in the test files
-of the same functions (test_torch_hash_encode, _hash_mlp, _trainer, _pipeline).
+of the same functions (test_torch_hash_encode, _hash_mlp, _trainer, _pipeline,
+_fused_mlp, _siren), whose helpers the slice-2 rows reuse.
 """
 
 import functools
@@ -129,6 +130,86 @@ def _pipeline_errors():
     return abs(tq["psnr"] - jq["psnr"]), abs(tq["ssim"] - jq["ssim"]), grid_err
 
 
+def _max_err(pairs):
+    return max(float(np.abs(np.asarray(a) - np.asarray(b)).max()) for a, b in pairs)
+
+
+@functools.lru_cache(maxsize=None)
+def _fused_mlp_errors(sine: bool):
+    """Max |port - Pallas interpret| of the fused-MLP forward and of the
+    backward's dW, db and dx, over the stacks of test_torch_fused_mlp with
+    (or without) sine layers."""
+    import test_torch_fused_mlp as tf
+
+    fwd, bwd = [], []
+    for name in sorted(tf.STACKS):
+        ws, bs, x, g, acts = tf._stack(name)
+        if any(a[0] == "sine" for a in acts) != sine:
+            continue
+        flat, L = tf._jax_flat(ws, bs), len(ws) - 1
+        want = tf.jfm._forward_call(flat, jnp.asarray(x), L, acts, tf.TILE, True, ws[-1].shape[1])
+        got = tf.fm.mlp_forward(tf._torch(ws), tf._torch(bs), torch.from_numpy(x), acts)
+        fwd.append((got.numpy(), want))
+        grads, jdx = tf.jfm._backward_call(flat, jnp.asarray(x), jnp.asarray(g), L, acts, tf.TILE, True, True)
+        dws, dbs, dx = tf.fm.mlp_backward(tf._torch(ws), tf._torch(bs), torch.from_numpy(x), torch.from_numpy(g),
+                                          acts, True)
+        bwd += [(d.numpy(), grads[2 * l]) for l, d in enumerate(dws)]
+        bwd += [(d.numpy(), np.asarray(grads[2 * l + 1]).reshape(-1)) for l, d in enumerate(dbs)]
+        bwd.append((dx.numpy(), jdx))
+    return _max_err(fwd), _max_err(bwd)
+
+
+@functools.lru_cache(maxsize=None)
+def _slice2_model_errors(model: str):
+    """Max |port - JAX| of the output and of every parameter gradient (the
+    table's included) of make_siren or the relu_plain HashMLP, the JAX
+    model's Pallas kernels in interpret mode."""
+    import test_torch_siren as ts
+
+    jm, params, state, tm = ts._siren_pair() if model == "siren" else ts._hash_pair()
+    x, y = ts._points(257, -1.0 if model == "siren" else 0.0, seed=2)
+
+    def loss(p):
+        pred, _ = jm.apply(p, state, jnp.asarray(x), train=True)
+        return jnp.mean((pred - jnp.asarray(y)) ** 2), pred
+
+    (_, pred), grads = jax.value_and_grad(loss, has_aux=True)(params)
+    out = tm(torch.from_numpy(x))
+    torch.mean((out - torch.from_numpy(y)) ** 2).backward()
+    named = dict(tm.named_parameters())
+    grad_err = _max_err((named[k].grad.numpy(), v.numpy())
+                        for k, v in params_from_jax(jax.device_get(grads)).items())
+    return _max_err([(out.detach().numpy(), pred)]), grad_err
+
+
+@functools.lru_cache(maxsize=None)
+def _slice2_fit_rel(model: str):
+    """Max relative difference of 8 Adam steps' losses (adam_tcnn for the
+    relu_plain HashMLP), port vs JAX trainer, from one init."""
+    import test_torch_siren as ts
+
+    if model == "siren":
+        ds = dataset_from_array(synthetic_volume((16, 16, 8), seed=7), zero_centered=True)
+        jm, params, state, tm = ts._siren_pair(fused="off")
+        cfg = dict(batch_size=256, epochs=1, lr=1e-4, seed=0, shuffle=False)
+    else:
+        ds = dataset_from_array(synthetic_volume((16, 16, 8), seed=7))
+        jm, params, state, tm = ts._hash_pair(fused="off")
+        cfg = dict(batch_size=256, epochs=1, lr=1e-2, seed=0, shuffle=False, optimizer="adam_tcnn")
+    jres = JaxTrainer(JaxTrainConfig(**cfg)).fit(jm, ds.coords, ds.values, params=params, state=state)
+    tres = Trainer(TrainConfig(**cfg)).fit(tm, ds.coords, ds.values, device="cpu")
+    return float(np.max(np.abs(tres.losses / np.asarray(jres.losses) - 1)))
+
+
+@functools.lru_cache(maxsize=None)
+def _siren_grid_error():
+    import test_torch_siren as ts
+
+    jm, params, state, tm = ts._siren_pair(fused="off", seed=3)
+    want = jax_evaluate_grid(jm, params, state, (12, 10, 6), lo=-1.0, chunk_size=256)
+    return _max_err([(evaluate_grid(tm, (12, 10, 6), lo=-1.0, chunk_size=256, device="cpu"), want)])
+
+
 # (slice, function, tolerance, measure) -> each row's measure returns its max error
 ROWS = {
     "encode_fwd_pallas": ("encoding", "hash_encode_forward vs Pallas interpret", 1e-6,
@@ -150,6 +231,25 @@ ROWS = {
                          lambda: _pipeline_errors()[2]),
     "psnr": ("pipeline", "reconstruction PSNR of two fits, dB", 0.05, lambda: _pipeline_errors()[0]),
     "ssim": ("pipeline", "reconstruction SSIM of two fits", 5e-3, lambda: _pipeline_errors()[1]),
+    "fused_fwd": ("fused MLP", "mlp_forward vs Pallas interpret (relu, gelu, id)", 1e-5,
+                  lambda: _fused_mlp_errors(False)[0]),
+    "fused_fwd_sine": ("fused MLP", "mlp_forward vs Pallas interpret (sine, w0 30 / 25 / 50)", 2e-5,
+                       lambda: _fused_mlp_errors(True)[0]),
+    "fused_bwd": ("fused MLP", "mlp_backward dW, db, dx vs Pallas _backward_call (relu, gelu, id)", 1e-5,
+                  lambda: _fused_mlp_errors(False)[1]),
+    "fused_bwd_sine": ("fused MLP", "mlp_backward dW, db, dx vs Pallas _backward_call (sine)", 2e-5,
+                       lambda: _fused_mlp_errors(True)[1]),
+    "siren_forward": ("SIREN", "make_siren output (3-32x3-1, fused interpret)", 2e-5,
+                      lambda: _slice2_model_errors("siren")[0]),
+    "siren_grads": ("SIREN", "make_siren parameter gradients", 2e-5, lambda: _slice2_model_errors("siren")[1]),
+    "siren_fit": ("SIREN", "Trainer.fit loss curve, rel (zero-centred)", 1e-4, lambda: _slice2_fit_rel("siren")),
+    "siren_grid": ("SIREN", "evaluate_grid (12,10,6) at lo=-1, same params", 2e-5, _siren_grid_error),
+    "relu_plain_forward": ("tcnn HashMLP", "relu_plain output (fused interpret)", 1e-5,
+                           lambda: _slice2_model_errors("relu_plain")[0]),
+    "relu_plain_grads": ("tcnn HashMLP", "relu_plain parameter gradients, table (via dx) included", 1e-5,
+                         lambda: _slice2_model_errors("relu_plain")[1]),
+    "relu_plain_fit": ("tcnn HashMLP", "Trainer.fit loss curve with adam_tcnn, rel", 1e-4,
+                       lambda: _slice2_fit_rel("relu_plain")),
 }
 
 

@@ -197,7 +197,7 @@ def test_launcher_rank_adapts_a_4d_volume(tmp_path):
 
 @pytest.mark.parametrize("field, value", [("shard_tables", True), ("data_parallel", True),
                                           ("even_frames_only", True), ("stream_shard_voxels", 100),
-                                          ("undersample_pct", 10.0), ("model_class", "siren")])
+                                          ("undersample_pct", 10.0), ("model_class", "modulated_siren")])
 def test_launcher_unported_branches_raise(tmp_path, field, value):
     cfg = RunConfig(image_path=_write_volume(tmp_path, (8, 8, 4)), output_root=str(tmp_path / "runs"))
     setattr(cfg, field, value)

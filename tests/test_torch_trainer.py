@@ -117,8 +117,7 @@ def test_relative_l2_loss_matches_jax(dataset):
     np.testing.assert_allclose(tres.losses, np.asarray(jres.losses), rtol=RTOL)
 
 
-@pytest.mark.parametrize("kwargs", [dict(optimizer="adam_tcnn"), dict(lr_schedule="cosine"),
-                                    dict(accumulate_grad_batches=2)])
+@pytest.mark.parametrize("kwargs", [dict(lr_schedule="cosine"), dict(accumulate_grad_batches=2)])
 def test_unported_optimizer_options_raise(kwargs):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         make_optimizer(TrainConfig(**kwargs), [torch.nn.Parameter(torch.zeros(1))])
@@ -132,11 +131,13 @@ def test_unknown_optimizer_and_loss_raise(dataset):
         Trainer(TrainConfig(loss="l1")).fit(tm, dataset.coords, dataset.values, device="cpu")
 
 
-def test_optimizer_is_torch_adam_with_l2():
-    opt = make_optimizer(TrainConfig(lr=1e-3, weight_decay=0.1), [torch.nn.Parameter(torch.zeros(1))])
+@pytest.mark.parametrize("optimizer, betas, eps", [("adam", (0.9, 0.999), 1e-8), ("adam_tcnn", (0.9, 0.99), 1e-15)])
+def test_optimizer_is_torch_adam_with_l2(optimizer, betas, eps):
+    opt = make_optimizer(TrainConfig(lr=1e-3, weight_decay=0.1, optimizer=optimizer),
+                         [torch.nn.Parameter(torch.zeros(1))])
     group = opt.param_groups[0]
     assert isinstance(opt, torch.optim.Adam)
-    assert group["betas"] == (0.9, 0.999) and group["eps"] == 1e-8 and group["weight_decay"] == 0.1
+    assert group["betas"] == betas and group["eps"] == eps and group["weight_decay"] == 0.1
 
 
 def test_train_result_rates():
