@@ -13,11 +13,15 @@ Phases, each printed with its time as it ends:
    exactly to ``2 * x``;
 3. kernels: each kernel against its plain PyTorch version on the card, at the
    main paths' shapes (and, for the hash kernels, a hashed geometry; for the
-   fused MLP, the ``siren 352x5`` shape and a small gelu stack), with times
-   and bounds;
+   fused MLP, the ``siren 352x5`` shape and a small gelu stack; for the
+   coarse-level pair, the kernel bench's geometry, the JAX tests' geometry
+   and the multi-frame HashMLP's levels 0-3 at one 352 x 352 frame, with
+   kernel 1 and 2 timed beside them on the same levels and on the whole
+   multi-frame encoder), with times and bounds;
 4. small fit: ``Trainer.fit`` on the card against the same fit on the CPU, for
    the flagship HashMLP, a small SIREN and a small ``relu_plain`` HashMLP
-   with ``adam_tcnn``;
+   with ``adam_tcnn``; ``Trainer.fit_frames`` likewise for a small
+   MultiHashMLP and MultiSiren;
 5. main paths, each with the launch counters set to 0 just before it and
    read just after:
    - flagship: ``launcher.run`` with the defaults on a synthetic
@@ -28,8 +32,16 @@ Phases, each printed with its time as it ends:
    - path B: ``launcher.main`` with the tcnn flags (16 levels x 2 features,
      2^19 rows, per_level_scale 1.4, relu_plain 32 -> 128 -> 1,
      ``adam_tcnn``: 185 steps, then the grids);
-6. profile: device time by kernel over 20 training steps of each path and one
-   flagship grid evaluation (torch.profiler).
+   - kernel bench: ``bench_kernels.run`` (sections 0-2: the probe, the fused
+     SIREN and its gradients, the coarse hash encode and its table
+     gradient), each record held to its tolerance;
+   - multi_hash_mlp and multi_siren: ``Trainer.fit_frames`` for 2 epochs
+     (30 steps) on a synthetic (352, 352, 15) 2-D+t volume split into 15
+     frames of 123,904 voxels, then ``evaluate_grid((352, 352),
+     frame_idx=t)`` for every frame, PSNR and SSIM;
+6. profile: device time by kernel over 20 training steps of each path (one
+   epoch of 15 frames for the multi-frame models) and one flagship grid
+   evaluation (torch.profiler).
 
 The last two lines are the kernels' JSON line and
 ``{"ok": true, "device": {...}}``. Any failed phase exits non-zero before
@@ -67,6 +79,8 @@ CSRC = "mri_interpolation_tpu_torch/ops/csrc/"
 SOURCES = {
     "hash_encode_forward": CSRC + "hash_encode.cu",
     "hash_encode_table_grad": CSRC + "hash_encode.cu",
+    "hash_encode_coarse_forward": CSRC + "hash_encode.cu",
+    "hash_encode_coarse_table_grad": CSRC + "hash_encode.cu",
     "fused_mlp_forward": CSRC + "fused_mlp.cu",
     "fused_mlp_backward": CSRC + "fused_mlp.cu",
     "probe": CSRC + "probe.cu",
@@ -74,6 +88,8 @@ SOURCES = {
 REPLACES = {
     "hash_encode_forward": "mri_interpolation_tpu/ops/pallas/hash_encode.py:175",
     "hash_encode_table_grad": "mri_interpolation_tpu/ops/pallas/hash_encode.py:198",
+    "hash_encode_coarse_forward": "mri_interpolation_tpu/ops/pallas/hash_encode.py:350",
+    "hash_encode_coarse_table_grad": "mri_interpolation_tpu/ops/pallas/hash_encode.py:372",
     "fused_mlp_forward": "mri_interpolation_tpu/ops/pallas/fused_mlp.py:185",
     "fused_mlp_backward": "mri_interpolation_tpu/ops/pallas/fused_mlp.py:205",
     "probe": "scripts/bench_pallas_exec.py:76",
@@ -81,6 +97,11 @@ REPLACES = {
 VOLUME = (352, 352, 15)
 GRID = (352, 352, 30)
 CHUNKS = -(-352 * 352 * 15 // (1 << 17)) + -(-352 * 352 * 30 // (1 << 17))  # 15 + 29
+FRAME = (352, 352)  # one frame of the multi-frame paths: 123,904 voxels
+# the multi-frame HashMLP of scripts/experiments.py:238-243 (RESULTS.md:25)
+MULTI_HASH = dict(dim_in=2, n_frames=15, n_levels=10, n_features_per_level=2, log2_hashmap_size=17,
+                  base_resolution=16, per_level_scale=1.4, dim_hidden=64, n_layers=2)
+MULTI_SIREN = dict(dim_in=2, dim_hidden=128, n_layers=4, n_frames=15)  # experiments.py:233-237
 TCNN_FLAGS = ["--n_levels", "16", "--n_features_per_level", "2", "--log2_hashmap_size", "19",
               "--base_resolution", "16", "--per_level_scale", "1.4", "--dim_hidden", "128", "--n_layers", "2",
               "--decoder", "relu_plain", "--lr", "1e-2", "--optimizer", "adam_tcnn"]
@@ -256,6 +277,115 @@ def check_kernels(torch, he, enc_flagship, enc_hashed, dev):
     return rows
 
 
+def check_coarse_kernels(torch, he, dev):
+    """Kernels 3 and 4 against their plain versions on three geometries: the
+    multi-frame HashMLP's levels 0-3 at one 352 x 352 frame (the main row),
+    the kernel bench's and the JAX tests'; ragged N and x in [-1, 1]. Beside
+    the main row, kernels 1 and 2 on the same four levels (the same function:
+    held to kernel 3's output) and on the whole 10-level encoder. Returns
+    per-kernel rows."""
+    from mri_interpolation_tpu_torch.bench_kernels import bench_geometry
+    from mri_interpolation_tpu_torch.encodings import HashGridEncoding
+
+    gen = torch.Generator(device="cpu").manual_seed(4)
+    geom_multi = dict(dim=2, n_features_per_level=2, log2_hashmap_size=17, base_resolution=16,
+                      finest_resolution=None, per_level_scale=1.4)
+    multi = HashGridEncoding(n_levels=10, **geom_multi)
+    multi4 = HashGridEncoding(n_levels=4, **geom_multi)  # levels 0-3 of `multi`, alone
+    paper = HashGridEncoding(dim=3, n_levels=3, n_features_per_level=2, log2_hashmap_size=11,
+                             base_resolution=(3, 3, 2), finest_resolution=(11, 11, 6), growth="paper")
+    cases = [  # (geometry, encoder, N, x's lower end, what)
+        ("multi_frame", multi, FRAME[0] * FRAME[1], 0.0, "one 352x352 frame"),
+        ("multi_frame", multi, 517, -1.0, "ragged, x in [-1, 1]"),
+        ("bench", bench_geometry(), 65536, 0.0, "bench batch"),
+        ("paper", paper, 517, 0.0, "ragged"),
+        ("paper", paper, 4099, -1.0, "x in [-1, 1]"),
+    ]
+    rows = {"hash_encode_coarse_forward": [], "hash_encode_coarse_table_grad": []}
+    for geom, enc, n, lo, what in cases:
+        levels = he.coarse_onehot_levels(enc)
+        d, F, L = enc.input_dim, enc.n_features_per_level, len(levels)
+        coarse_rows = sum(int(enc.level_sizes[l]) for l in levels)
+        x = torch.rand((n, d), generator=gen) * (1.0 - lo) + lo
+        x[0], x[1] = lo, 1.0
+        x = x.to(dev)
+        table = (torch.rand((enc.total_size, F), generator=gen) * 2 - 1).to(dev)
+        g = torch.randn((n, L * F), generator=gen).to(dev)
+
+        out = he.hash_encode_coarse_forward(enc, table, x)
+        ref = he.hash_encode_coarse_reference(enc, table, x)
+        torch.cuda.synchronize()
+        err = float((out - ref).abs().max())
+        tol = FWD_ATOL * max(1.0, float(ref.abs().max()))
+        if not math.isfinite(err) or err > tol:
+            fail(f"hash_encode_coarse_forward {geom} N={n} ({what}): max abs err {err} > {tol}")
+        fb, fk = bound_ms(4.0 * (n * d + coarse_rows * F + n * L * F), n * L * flops_per_point_level(d, F, grad=False))
+        call = lambda: he.hash_encode_coarse_forward(enc, table, x)  # noqa: E731
+        frow = {"geometry": geom, "n": n, "what": what, "levels": levels, "coarse_rows": coarse_rows,
+                "max_abs_err": err, "tolerance": tol, **kernel_times(call, "hash_encode_coarse_forward_kernel"),
+                "plain_ms": time_ms(lambda: he.hash_encode_coarse_reference(enc, table, x), iters=5),
+                "bound_ms": fb, "bound_by": fk, "library_ms": None}
+        rows["hash_encode_coarse_forward"].append(frow)
+        log(f"  coarse forward    {geom:11s} N={n:>7,d} ({what}): levels {levels} ({coarse_rows:,d} rows), "
+            f"err {err:.3e}  kernel {frow['ms']} ms  per call {frow['call_ms']:.4f} ms  plain {frow['plain_ms']:.4f} ms"
+            f"  bound {fb:.5f} ms ({fk})")
+
+        dt = he.hash_encode_coarse_table_grad(enc, x, g)
+        dref = he.hash_encode_coarse_table_grad_reference(enc, x, g)
+        abs_sum = he.table_grad_abs_sum(enc, x, g, levels)
+        torch.cuda.synchronize()
+        err = float((dt - dref).abs().max())
+        excess = float(((dt - dref).abs() - he.atomic_sum_bound(abs_sum)).max())
+        if not math.isfinite(err) or excess > 0.0:
+            fail(f"hash_encode_coarse_table_grad {geom} N={n} ({what}): max abs err {err}, "
+                 f"{excess} over the per-row bound")
+        ids, w = enc.corner_ids_and_weights(x, levels)
+        contrib = (g.reshape(n, L, 1, F) * w.unsqueeze(-1)).reshape(-1, F)
+        flat_ids = ids.reshape(-1)
+        zeros = torch.zeros((enc.total_size, F), device=dev)
+        gb, gk = bound_ms(4.0 * (n * d + n * L * F + coarse_rows * F), n * L * flops_per_point_level(d, F, grad=True))
+        call = lambda: he.hash_encode_coarse_table_grad(enc, x, g)  # noqa: E731
+        grow = {"geometry": geom, "n": n, "what": what, "levels": levels, "max_abs_err": err,
+                "largest_bound": float(he.atomic_sum_bound(abs_sum).max()),
+                **kernel_times(call, "hash_encode_coarse_table_grad_kernel"),
+                "plain_ms": time_ms(lambda: he.hash_encode_coarse_table_grad_reference(enc, x, g), iters=5),
+                "bound_ms": gb, "bound_by": gk,
+                "library_ms": kernel_ms(lambda: zeros.index_add_(0, flat_ids, contrib), "")}
+        rows["hash_encode_coarse_table_grad"].append(grow)
+        log(f"  coarse table_grad {geom:11s} N={n:>7,d} ({what}): err {err:.3e} (bound >= 1e-5)  kernel {grow['ms']} ms"
+            f"  per call {grow['call_ms']:.4f} ms  plain {grow['plain_ms']:.4f} ms  index_add_ {grow['library_ms']} ms"
+            f"  bound {gb:.5f} ms ({gk})")
+
+        if geom == "multi_frame" and n == FRAME[0] * FRAME[1]:
+            # kernels 1-2 on the same levels (the same function) and on the whole encoder
+            t4 = table[:multi4.total_size]
+            same = he.hash_encode_forward(multi4, t4, x)
+            same_grad = he.hash_encode_table_grad(multi4, x, g)
+            torch.cuda.synchronize()
+            e1 = float((same - out).abs().max())
+            if e1 > FWD_ATOL:
+                fail(f"kernel 1 on levels 0-3 differs from kernel 3 by {e1}")
+            e2 = float(((same_grad - dt[:multi4.total_size]).abs()
+                        - he.atomic_sum_bound(abs_sum[:multi4.total_size])).max())
+            if e2 > 0.0:
+                fail(f"kernel 2 on levels 0-3 differs from kernel 4 by {e2} over the per-row bound")
+            g_all = torch.randn((n, multi.output_dim), generator=gen).to(dev)
+            fwd1, grad2 = "hash_encode_forward_kernel", "hash_encode_table_grad_kernel"
+            beside = {
+                "kernel1_same_levels_ms": kernel_ms(lambda: he.hash_encode_forward(multi4, t4, x), fwd1),
+                "kernel2_same_levels_ms": kernel_ms(lambda: he.hash_encode_table_grad(multi4, x, g), grad2),
+                "kernel1_all_levels_ms": kernel_ms(lambda: he.hash_encode_forward(multi, table, x), fwd1),
+                "kernel2_all_levels_ms": kernel_ms(lambda: he.hash_encode_table_grad(multi, x, g_all), grad2),
+                "kernel1_equals_kernel3": bool(torch.equal(same, out)),
+            }
+            frow["beside"] = beside
+            log(f"  beside, N={n:,d}: kernel 1 on levels 0-3 {beside['kernel1_same_levels_ms']} ms "
+                f"(bitwise equal to kernel 3: {beside['kernel1_equals_kernel3']}), on all 10 levels "
+                f"{beside['kernel1_all_levels_ms']} ms; kernel 2 on levels 0-3 {beside['kernel2_same_levels_ms']} ms, "
+                f"on all 10 levels {beside['kernel2_all_levels_ms']} ms")
+    return rows
+
+
 def mlp_work(dims, batch: int, backward: bool, need_dx: bool):
     """(bytes, fp32 operations) the fused MLP must move and do: x (and g)
     read once, the weights and biases read once, the output (dW, db and dx)
@@ -419,6 +549,57 @@ def small_fits(torch) -> dict:
     }
 
 
+def small_fit_frames_match_cpu(torch) -> dict:
+    """Ten steps of Trainer.fit_frames (2 epochs x 5 frames of a (16, 16, 5)
+    volume), card vs CPU, from one init, for a small MultiHashMLP (tables
+    redrawn U(-0.5, 0.5), as in small_fit_matches_cpu) and a small MultiSiren
+    (coordinates and values in [-1, 1]); returns the largest relative
+    difference of the loss curves."""
+    from mri_interpolation_tpu_torch.io import dataset_from_array, synthetic_volume
+    from mri_interpolation_tpu_torch.models import make_multi_hash_mlp, make_multi_siren
+    from mri_interpolation_tpu_torch.train import TrainConfig, Trainer
+
+    img = dataset_from_array(synthetic_volume((16, 16, 5), seed=4)).image()
+    coords, values = frames_of(img)
+    models = {
+        "multi_hash_mlp": (lambda d: make_multi_hash_mlp(dim_in=2, n_frames=5, n_levels=6, log2_hashmap_size=12,
+                                                         base_resolution=4, per_level_scale=1.5, dim_hidden=32,
+                                                         device=d, seed=5),
+                           TrainConfig(epochs=2, lr=5e-3, weight_decay=1e-5), coords, values),
+        "multi_siren": (lambda d: make_multi_siren(dim_in=2, dim_hidden=32, n_layers=3, n_frames=5, device=d, seed=5),
+                        TrainConfig(epochs=2, lr=1e-4, weight_decay=1e-5), 2 * coords - 1, 2 * values - 1),
+    }
+    rels = {}
+    for name, (make_model, cfg, c, v) in models.items():
+        state = make_model("cpu").state_dict()
+        if "encoders.table" in state:
+            state["encoders.table"] = torch.empty(state["encoders.table"].shape).uniform_(
+                -0.5, 0.5, generator=torch.Generator().manual_seed(6))
+        losses = {}
+        for dev in ("cuda", "cpu"):
+            model = make_model(dev)
+            model.load_state_dict(state)
+            losses[dev] = Trainer(cfg).fit_frames(model, c, v, device=dev).losses
+        if len(losses["cpu"]) != 10 or not np.all(np.isfinite(losses["cuda"])):
+            fail(f"small fit_frames {name}: {len(losses['cpu'])} steps, card losses {losses['cuda']}")
+        rels[name] = float(np.max(np.abs(losses["cuda"] - losses["cpu"]) / np.abs(losses["cpu"])))
+        if rels[name] > FIT_RTOL:
+            fail(f"small fit_frames {name}: card and CPU loss curves differ by {rels[name]} > rtol {FIT_RTOL}")
+    return rels
+
+
+def frames_of(img):
+    """(N, 2) coordinates in [0, 1] of one (X, Y) frame, C order, and the
+    (T, N, 1) values of the T frames of an (X, Y, T) image, as
+    scripts/experiments.py builds them for the multi-frame rows."""
+    xs = np.linspace(0, 1, img.shape[0], dtype=np.float32)
+    ys = np.linspace(0, 1, img.shape[1], dtype=np.float32)
+    gx, gy = np.meshgrid(xs, ys, indexing="ij")
+    coords = np.stack([gx.reshape(-1), gy.reshape(-1)], axis=-1)
+    values = np.stack([img[..., t].reshape(-1, 1) for t in range(img.shape[-1])], axis=0)
+    return coords, values.astype(np.float32)
+
+
 def counters():
     from mri_interpolation_tpu_torch.ops import fused_mlp, hash_encode, probe
 
@@ -475,6 +656,83 @@ def drive_path(name: str, kind: str, fn, steps: int, batch: int, expected: dict)
     return out
 
 
+def drive_frames(name: str, make_model, cfg, img, zero_centered: bool, expected: dict) -> dict:
+    """One multi-frame path with the counters at 0 just before and read just
+    after: fit_frames, then every frame's (352, 352) grid, PSNR and SSIM of
+    the stacked reconstruction against the image; checks shapes, steps and
+    launches; returns its numbers."""
+    import torch
+    from mri_interpolation_tpu_torch.infer import evaluate_grid
+    from mri_interpolation_tpu_torch.metrics import evaluate_reconstruction
+    from mri_interpolation_tpu_torch.train import Trainer
+
+    coords, values = frames_of(img)
+    lo = -1.0 if zero_centered else 0.0
+    if zero_centered:
+        coords, values = 2 * coords - 1, 2 * values - 1
+    n_frames = img.shape[-1]
+    model = make_model()
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    res = Trainer(cfg).fit_frames(model, coords, values)
+    grid_times, vols = [], []
+    for t in range(n_frames):
+        tg = time.perf_counter()
+        vols.append(evaluate_grid(model, FRAME, lo=lo, frame_idx=t))
+        grid_times.append(time.perf_counter() - tg)
+    recon = np.stack(vols, axis=-1)
+    if zero_centered:
+        recon = (recon + 1.0) / 2.0
+    quality = evaluate_reconstruction(recon, img, data_range=1.0)
+    seconds = time.perf_counter() - t0
+    launches = read_counts()
+    steps = cfg.epochs * n_frames
+    if recon.shape != img.shape or not np.all(np.isfinite(recon)) or not np.all(np.isfinite(res.losses)):
+        fail(f"{name}: reconstruction {recon.shape}, finite {np.all(np.isfinite(recon))}, losses {res.losses}")
+    if not (math.isfinite(quality["psnr"]) and math.isfinite(quality["ssim"])):
+        fail(f"{name}: PSNR {quality['psnr']} / SSIM {quality['ssim']} not finite")
+    if res.steps != steps or launches != expected:
+        fail(f"{name}: {res.steps} steps, launches {launches}; expected {steps} steps, launches {expected}")
+    voxels = coords.shape[-2]
+    out = {"steps": steps, "train_wall_s": res.wall_time_s, "epoch_times_s": res.epoch_times_s.tolist(),
+           "steady_steps_per_s": res.steady_steps_per_sec,
+           "train_voxel_evals_per_s": res.steady_steps_per_sec * voxels,
+           "grid_s_per_frame": float(np.median(grid_times)), "grid_voxels_per_s": voxels / float(np.median(grid_times)),
+           "psnr": quality["psnr"], "ssim": quality["ssim"], "final_loss": res.final_loss,
+           "param_count": sum(p.numel() for p in model.parameters()), "wall_s": seconds, "launches": launches}
+    log(f"[{name}] fit_frames: {steps} steps in {res.wall_time_s:.3f} s (epochs {res.epoch_times_s.round(4).tolist()} "
+        f"s), steady {out['steady_steps_per_s']:.1f} steps/s = {out['train_voxel_evals_per_s']:,.0f} training "
+        "voxel-evals/s")
+    log(f"[{name}] grid {FRAME} per frame (median of {n_frames}): {out['grid_s_per_frame'] * 1e3:.3f} ms = "
+        f"{out['grid_voxels_per_s']:,.0f} voxels/s; PSNR {quality['psnr']:.3f} dB, SSIM {quality['ssim']:.4f}, "
+        f"final loss {res.final_loss:.5f}; {out['param_count']:,d} parameters; launches {launches}; {seconds:.1f} s")
+    return out
+
+
+def drive_bench(expected: dict) -> dict:
+    """The kernel bench (sections 0-2) as a path: counters at 0 just before,
+    read just after; every record within its tolerance."""
+    from mri_interpolation_tpu_torch import bench_kernels
+
+    reset_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        summary = bench_kernels.run()
+    seconds = time.perf_counter() - t0
+    launches = read_counts()
+    for rec in summary["kernels"]:
+        log(f"[bench] {rec['kernel']:26s} batch {rec.get('batch', '-')!s:>6s}: err {rec['max_abs_err']:.3e} "
+            f"(tol {rec['tolerance']:.3e})  kernel {rec['kernel_ms']:.4f} ms  plain {rec['plain_ms']:.4f} ms")
+        if not rec["ok"]:
+            fail(f"bench_kernels {rec['kernel']} batch {rec.get('batch')}: error {rec['max_abs_err']} "
+                 f"> {rec['tolerance']}")
+    if launches != expected:
+        fail(f"bench_kernels: launches {launches}; expected {expected}")
+    log(f"[bench] launches {launches}; {seconds:.1f} s")
+    return {"records": summary["kernels"], "wall_s": seconds, "launches": launches}
+
+
 def cli(launcher, argv):
     """``launcher.main(argv)``; its printed summary is checked and kept out of the log."""
     buf = io.StringIO()
@@ -487,18 +745,24 @@ def cli(launcher, argv):
 
 def profile_main_paths(torch) -> None:
     """Print device time by kernel over 20 training steps of each path (per
-    step) and one (352, 352, 30) grid evaluation of the flagship and of path
-    A, each under torch.profiler (which slows the host, so the busy shares
-    are lower bounds)."""
+    step; one epoch of 15 frames for the multi-frame models), one
+    (352, 352, 30) grid evaluation of the flagship and of path A, and the 15
+    (352, 352) frame grids of the multi-frame HashMLP (per frame), each under
+    torch.profiler (which slows the host, so the busy shares are lower
+    bounds)."""
     from mri_interpolation_tpu_torch.infer import evaluate_grid
     from mri_interpolation_tpu_torch.io import dataset_from_array, synthetic_volume
-    from mri_interpolation_tpu_torch.models import make_hash_mlp, make_siren
+    from mri_interpolation_tpu_torch.models import make_hash_mlp, make_multi_hash_mlp, make_multi_siren, make_siren
     from mri_interpolation_tpu_torch.train import TrainConfig, Trainer
 
     ds = dataset_from_array(synthetic_volume(VOLUME, seed=0))
     zc = dataset_from_array(synthetic_volume(VOLUME, seed=0), zero_centered=True)
     flagship = make_hash_mlp(3)
     siren = make_siren(3, dim_hidden=128, n_layers=6)
+    img = ds.image()
+    frame_coords, frame_values = frames_of(img)
+    multi_hash = make_multi_hash_mlp(**MULTI_HASH)
+    multi_siren = make_multi_siren(**MULTI_SIREN)
     tcnn = make_hash_mlp(3, n_levels=16, n_features_per_level=2, log2_hashmap_size=19, base_resolution=16,
                          per_level_scale=1.4, dim_hidden=128, n_layers=2, decoder="relu_plain")
     fit = lambda model, d, cfg, n: lambda: Trainer(cfg).fit(model, d.coords[:n], d.values[:n])  # noqa: E731
@@ -508,6 +772,12 @@ def profile_main_paths(torch) -> None:
         ("path B train_step", fit(tcnn, ds, TrainConfig(lr=1e-2, optimizer="adam_tcnn"), 200_000), 20),
         ("flagship grid_eval_352x352x30", lambda: evaluate_grid(flagship, GRID), 1),
         ("path A grid_eval_352x352x30", lambda: evaluate_grid(siren, GRID, lo=-1.0), 1),
+        ("multi_hash_mlp train_step", lambda: Trainer(TrainConfig(lr=5e-3)).fit_frames(
+            multi_hash, frame_coords, frame_values), 15),
+        ("multi_siren train_step", lambda: Trainer(TrainConfig(lr=1e-4)).fit_frames(
+            multi_siren, 2 * frame_coords - 1, 2 * frame_values - 1), 15),
+        ("multi_hash_mlp grid_eval_352x352 x15", lambda: [evaluate_grid(multi_hash, FRAME, frame_idx=t)
+                                                          for t in range(15)], 15),
     )
     for phase, fn, per in phases:
         kernels, wall_ms = profile_device(fn)
@@ -525,14 +795,16 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card", file=sys.stderr)
         return 1
-    from mri_interpolation_tpu_torch import launcher
+    from mri_interpolation_tpu_torch import bench_kernels, launcher
     from mri_interpolation_tpu_torch.configs import RunConfig
     from mri_interpolation_tpu_torch.encodings import HashGridEncoding
-    from mri_interpolation_tpu_torch.io import nifti, synthetic_volume
+    from mri_interpolation_tpu_torch.io import dataset_from_array, nifti, synthetic_volume
+    from mri_interpolation_tpu_torch.models import make_multi_hash_mlp, make_multi_siren
     from mri_interpolation_tpu_torch.ops import build
     from mri_interpolation_tpu_torch.ops import fused_mlp as fm
     from mri_interpolation_tpu_torch.ops import hash_encode as he
     from mri_interpolation_tpu_torch.ops import probe as pr
+    from mri_interpolation_tpu_torch.train import TrainConfig
 
     torch.backends.cuda.matmul.allow_tf32 = False  # full fp32 GEMMs, as the CPU reference
     torch.backends.cudnn.allow_tf32 = False
@@ -567,6 +839,7 @@ def main() -> int:
     log(f"[kernels] flagship: {flagship.total_size:,d} rows, dense {flagship.level_dense.tolist()}; "
         f"hashed16: {hashed.total_size:,d} rows, {int((~hashed.level_dense).sum())} of 16 levels hashed")
     rows = check_kernels(torch, he, flagship, hashed, dev)
+    rows.update(check_coarse_kernels(torch, he, dev))
     rows.update(check_fused_mlp(torch, fm, dev))
     rows["probe"] = [probe_row]
     log(f"[kernels] done in {time.perf_counter() - t0:.1f} s")
@@ -574,6 +847,7 @@ def main() -> int:
     # 4. small fits, card vs CPU
     t0 = time.perf_counter()
     rels = small_fits(torch)
+    rels.update(small_fit_frames_match_cpu(torch))
     log(f"[small fit] 10 steps each, card vs CPU loss curves, max rel diff (rtol {FIT_RTOL}): "
         + ", ".join(f"{k} {v:.3e}" for k, v in rels.items()) + f" in {time.perf_counter() - t0:.1f} s")
 
@@ -601,6 +875,21 @@ def main() -> int:
             185, 10_000, {**zero, "hash_encode_forward": 185 + CHUNKS, "hash_encode_table_grad": 185,
                           "fused_mlp_forward": 185 + CHUNKS, "fused_mlp_backward": 185, "probe": 1})
 
+    # the kernel bench: each timed call runs once to check, 3 times to warm up, ITERS times timed
+    calls = 1 + 3 + bench_kernels.ITERS
+    paths["bench"] = drive_bench({**zero, "probe": calls, "fused_mlp_forward": 3 * calls, "fused_mlp_backward": calls,
+                                  "hash_encode_coarse_forward": 3 * calls, "hash_encode_coarse_table_grad": calls})
+
+    # the multi-frame paths: 2 epochs x 15 frames, then one (352, 352) grid chunk per frame
+    img = dataset_from_array(synthetic_volume(VOLUME, seed=0)).image()
+    paths["multi_hash_mlp"] = drive_frames(
+        "multi_hash_mlp", lambda: make_multi_hash_mlp(**MULTI_HASH), TrainConfig(epochs=2, lr=5e-3), img, False,
+        {**zero, "hash_encode_forward": 30 + 15, "hash_encode_table_grad": 30, "fused_mlp_forward": 30 + 15,
+         "fused_mlp_backward": 30})
+    paths["multi_siren"] = drive_frames(
+        "multi_siren", lambda: make_multi_siren(**MULTI_SIREN), TrainConfig(epochs=2, lr=1e-4), img, True,
+        {**zero, "fused_mlp_forward": 2 * 30 + 2 * 15, "fused_mlp_backward": 2 * 30})
+
     # 6. where the time goes: device time by kernel over short fits and grid evaluations
     t0 = time.perf_counter()
     profile_main_paths(torch)
@@ -608,7 +897,7 @@ def main() -> int:
 
     kernels = []
     for name, krows in rows.items():
-        main_row = krows[0]  # the shape most main-path launches take: a training batch
+        main_row = krows[0]  # the shape of most main-path launches: a training batch, or one frame
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
             "launches": sum(p["launches"][name] for p in paths.values()),

@@ -34,7 +34,8 @@ PRIMES = (1, 2654435761, 805459861, 3674653429, 2097192037, 1434869437, 21652197
 _MASK32 = 0xFFFFFFFF
 
 # int32 words per level in the kernels' constant block (ops/csrc/hash_encode.cu
-# struct Level): res[4], vertex strides[4], size, offset, dense, pad.
+# struct Level): res[4], vertex strides[4], size, offset, dense, source (the
+# coarse kernels' first row of the level in the fused table; 0 here).
 LEVEL_CONST_WIDTH = 12
 
 
@@ -161,16 +162,19 @@ class HashGridEncoding:
             out[l, 10] = int(self.level_dense[l])
         return (out & _MASK32).astype(np.uint32).view(np.int32)
 
-    def corner_ids_and_weights(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    def corner_ids_and_weights(self, x: torch.Tensor, levels: Optional[Sequence[int]] = None
+                               ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Global table rows and multilinear weights of every corner.
 
-        x: (N, d) float32 in [0, 1]. Returns (ids int64, weights float32),
-        each (N, L, 2^d); corner c takes xi + 1 on the axes whose bit is set.
+        x: (N, d) float32, in [0, 1] as a rule (outside it, dense levels clamp
+        the cell index and the weights extrapolate). Returns (ids int64,
+        weights float32), each (N, L, 2^d), over ``levels`` (default: all, in
+        order) as L; corner c takes xi + 1 on the axes whose bit is set.
         """
-        d, L, C = self.input_dim, self.n_levels, 1 << self.input_dim
+        d, C = self.input_dim, 1 << self.input_dim
         xs = [x[:, k] for k in range(d)]
         ids_levels, w_levels = [], []
-        for l in range(L):
+        for l in (range(self.n_levels) if levels is None else levels):
             res = self.level_resolutions[l]
             dense = bool(self.level_dense[l])
             scaled = [xs[k] * float(res[k]) for k in range(d)]

@@ -14,7 +14,7 @@ function: the JAX tests hold ``apply_grid`` equal to ``apply`` to 1e-6.
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
@@ -45,10 +45,12 @@ def flat_index_to_coords(flat_idx: torch.Tensor, shape: Sequence[int], lo: float
 
 @torch.no_grad()
 def evaluate_grid(model: Model, shape: Sequence[int], lo: float = 0.0, hi: float = 1.0,
-                  chunk_size: int = 1 << 17, device: DeviceLike = None) -> np.ndarray:
+                  chunk_size: int = 1 << 17, device: DeviceLike = None,
+                  frame_idx: Optional[int] = None) -> np.ndarray:
     """Evaluate the model in eval mode on a dense grid of ``shape``; returns
     the volume (``shape``, plus a trailing axis when dim_out > 1). The model
-    must already be on ``device`` (``cuda`` unless "cpu")."""
+    must already be on ``device`` (``cuda`` unless "cpu"). ``frame_idx``
+    selects a multi-frame model's frame."""
     dev = resolve_device(device)
     for p in model.parameters():
         if p.device != dev:
@@ -57,6 +59,7 @@ def evaluate_grid(model: Model, shape: Sequence[int], lo: float = 0.0, hi: float
     n = int(np.prod(shape))
     chunk_size = min(chunk_size, n)
     n_chunks = -(-n // chunk_size)
+    kwargs = {} if frame_idx is None else {"frame_idx": frame_idx}
     out = torch.empty((n_chunks * chunk_size, model.dim_out), dtype=torch.float32, device=dev)
     was_training = model.training
     model.eval()
@@ -64,7 +67,7 @@ def evaluate_grid(model: Model, shape: Sequence[int], lo: float = 0.0, hi: float
         for c in range(n_chunks):
             start = c * chunk_size
             flat = torch.arange(start, start + chunk_size, device=dev).clamp_(max=n - 1)
-            out[start:start + chunk_size] = model(flat_index_to_coords(flat, shape, lo, hi))
+            out[start:start + chunk_size] = model(flat_index_to_coords(flat, shape, lo, hi), **kwargs)
     finally:
         model.train(was_training)
     vol = out[:n].cpu().numpy()

@@ -1,9 +1,10 @@
 """The port's models: the flagship HashMLP (with the tcnn ``relu_plain``
-decoder) and SIREN; the rest of the JAX package's zoo is listed in
-ROADMAP.md."""
+decoder), SIREN, and the multi-frame MultiSiren and MultiHashMLP; the rest of
+the JAX package's zoo is listed in ROADMAP.md."""
 
 from .core import Model
 from .hash_mlp import HashMLP, make_hash_mlp
+from .multi import MultiHashMLP, MultiSiren, make_multi_hash_mlp, make_multi_siren
 from .siren import Siren, make_siren
 
 # name -> factory, with the reference's class names (as the JAX REGISTRY)
@@ -13,6 +14,10 @@ REGISTRY = {
     "hash_mlp": make_hash_mlp,
     "HashMLP": make_hash_mlp,
     "TcnnHashMLP": make_hash_mlp,  # tcnn-style config via per_level_scale + decoder="relu_plain"
+    "multi_siren": make_multi_siren,
+    "MultiSiren": make_multi_siren,
+    "multi_hash_mlp": make_multi_hash_mlp,
+    "MultiHashMLP": make_multi_hash_mlp,
 }
 
 
@@ -23,4 +28,5 @@ def get_model_factory(name: str):
     return REGISTRY[name]
 
 
-__all__ = ["Model", "HashMLP", "make_hash_mlp", "Siren", "make_siren", "REGISTRY", "get_model_factory"]
+__all__ = ["Model", "HashMLP", "make_hash_mlp", "Siren", "make_siren", "MultiSiren", "make_multi_siren",
+           "MultiHashMLP", "make_multi_hash_mlp", "REGISTRY", "get_model_factory"]

@@ -26,7 +26,7 @@ from ..device import DeviceLike, resolve_device
 from ..ops.fused_mlp import fused_siren_apply
 from .core import Dense, Model, uniform_init
 
-__all__ = ["Siren", "make_siren", "siren_layer_init", "siren_layer_apply"]
+__all__ = ["Siren", "make_siren", "siren_layer_init", "siren_layer_apply", "siren_init"]
 
 
 def siren_layer_init(dim_in: int, dim_out: int, w0: float, sigma: float, is_first: bool,
@@ -36,6 +36,15 @@ def siren_layer_init(dim_in: int, dim_out: int, w0: float, sigma: float, is_firs
         "w": uniform_init((dim_in, dim_out), float(bound), generator),
         "b": uniform_init((dim_out,), float(bound), generator),
     }
+
+
+def siren_init(dim_in: int, dim_hidden: int, dim_out: int, n_layers: int, w0: float, w0_initial: float,
+               sigma: float, generator: Optional[torch.Generator] = None):
+    """A SIREN's parameters as the JAX tree {"layers": [{"w", "b"}, ...],
+    "last": {"w", "b"}}, drawn layer after layer (JAX ``_siren_init``)."""
+    layers = [siren_layer_init(dim_in if i == 0 else dim_hidden, dim_hidden, w0_initial if i == 0 else w0, sigma,
+                               i == 0, generator) for i in range(n_layers)]
+    return {"layers": layers, "last": siren_layer_init(dim_hidden, dim_out, w0, sigma, False, generator)}
 
 
 def siren_layer_apply(params, x: torch.Tensor, w0: float, sine: bool = True) -> torch.Tensor:
@@ -57,11 +66,9 @@ class Siren(Model):
                  w0_initial: float, sigma: float, generator: Optional[torch.Generator] = None):
         super().__init__(dim_in, dim_out)
         self.n_layers, self.w0, self.w0_initial = n_layers, w0, w0_initial
-        self.layers = nn.ModuleList(
-            Dense(siren_layer_init(dim_in if i == 0 else dim_hidden, dim_hidden,
-                                   w0_initial if i == 0 else w0, sigma, i == 0, generator))
-            for i in range(n_layers))
-        self.last = Dense(siren_layer_init(dim_hidden, dim_out, w0, sigma, False, generator))
+        tree = siren_init(dim_in, dim_hidden, dim_out, n_layers, w0, w0_initial, sigma, generator)
+        self.layers = nn.ModuleList(Dense(layer) for layer in tree["layers"])
+        self.last = Dense(tree["last"])
 
     @property
     def params(self):

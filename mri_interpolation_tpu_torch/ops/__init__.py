@@ -1,8 +1,9 @@
 """Hand-written CUDA kernels for Hopper and their plain PyTorch versions.
 
-- hash_encode: multiresolution hash-encode forward and table gradient
-  (replaces the Pallas ``_forward_kernel`` / ``_backward_kernel`` of
-  ``mri_interpolation_tpu/ops/pallas/hash_encode.py``);
+- hash_encode: multiresolution hash-encode forward and table gradient, of
+  all levels and of the coarse dense levels alone (replaces the Pallas
+  ``_forward_kernel`` / ``_backward_kernel`` and ``_onehot_forward_kernel`` /
+  ``_onehot_backward_kernel`` of ``mri_interpolation_tpu/ops/pallas/hash_encode.py``);
 - fused_mlp: the fused MLP stack's forward and backward (replaces the Pallas
   ``_forward_kernel`` / ``_backward_kernel`` of
   ``mri_interpolation_tpu/ops/pallas/fused_mlp.py``);
@@ -15,6 +16,9 @@ Sources live in ``csrc/`` and are built by ``build.py`` at first use.
 from .hash_encode import (
     LAUNCHES,
     HashEncode,
+    HashEncodeCoarse,
+    coarse_onehot_levels,
+    hash_encode_coarse,
     hash_encode_forward,
     hash_encode_reference,
     hash_encode_table_grad,
@@ -25,6 +29,9 @@ from .hash_encode import (
 __all__ = [
     "LAUNCHES",
     "HashEncode",
+    "HashEncodeCoarse",
+    "coarse_onehot_levels",
+    "hash_encode_coarse",
     "hash_encode_forward",
     "hash_encode_reference",
     "hash_encode_table_grad",

@@ -1,4 +1,5 @@
-"""Training loop (port of ``mri_interpolation_tpu/train/trainer.py:Trainer.fit``).
+"""Training loop (port of ``mri_interpolation_tpu/train/trainer.py``:
+``Trainer.fit`` and ``Trainer.fit_frames``).
 
 The whole (coords, values) set is copied to the device once; each epoch
 draws a permutation from a seeded ``torch.Generator`` and every step gathers
@@ -13,6 +14,9 @@ the permutation's start; ``shuffle=False`` walks the data in order.
 ``optimizer="adam_tcnn"`` is tcnn's Adam (b2 0.99, eps 1e-15). Cosine
 schedules and gradient accumulation are not ported yet (ROADMAP.md, queue 1)
 and raise.
+
+``fit_frames`` fits the multi-frame models: one step per whole frame, the
+frames in order every epoch, the model called as ``model(x, frame_idx=t)``.
 """
 
 from __future__ import annotations
@@ -87,6 +91,14 @@ def make_optimizer(cfg: TrainConfig, params: Iterable[torch.nn.Parameter]) -> to
     return torch.optim.Adam(params, lr=cfg.lr, betas=betas, eps=eps, weight_decay=cfg.weight_decay)
 
 
+def _result(epoch_losses, epoch_times, wall: float) -> TrainResult:
+    """The TrainResult of a fit: per-step losses of every epoch, in order."""
+    losses = np.concatenate(epoch_losses) if epoch_losses else np.array([])
+    return TrainResult(losses=losses, wall_time_s=wall,
+                       steps_per_sec=len(losses) / wall if wall > 0 else float("inf"), steps=len(losses),
+                       epoch_times_s=np.asarray(epoch_times))
+
+
 class Trainer:
     """Fits a Model to a (coords, values) regression set on one device."""
 
@@ -134,13 +146,37 @@ class Trainer:
                 losses[s] = loss.detach()
             all_losses.append(losses.cpu().numpy())  # the epoch's one host sync
             epoch_times.append(time.perf_counter() - te)
-        wall = time.perf_counter() - t0
+        return _result(all_losses, epoch_times, time.perf_counter() - t0)
 
-        total_steps = cfg.epochs * steps_per_epoch
-        return TrainResult(
-            losses=np.concatenate(all_losses) if all_losses else np.array([]),
-            wall_time_s=wall,
-            steps_per_sec=total_steps / wall if wall > 0 else float("inf"),
-            steps=total_steps,
-            epoch_times_s=np.asarray(epoch_times),
-        )
+    def fit_frames(self, model: Model, frame_coords: np.ndarray, frame_values: np.ndarray,
+                   device: DeviceLike = None) -> TrainResult:
+        """Train a multi-frame model in place on ``device`` (``cuda`` unless
+        "cpu"): each epoch one optimizer step per whole frame, frames visited
+        in order (the reference's frames data module: batch = one frame, no
+        shuffle). ``frame_coords`` is (T, N, d), or (N, d) shared by every
+        frame; ``frame_values`` is (T, N, 1). Both are copied to the device
+        once and stay there for the whole fit."""
+        cfg = self.config
+        dev = resolve_device(device)
+        n_frames = frame_values.shape[0]
+        model.to(dev).train()
+        optimizer = make_optimizer(cfg, model.parameters())
+        loss_fn = get_loss(cfg.loss)
+        coords_d = torch.as_tensor(np.asarray(frame_coords, dtype=np.float32)).to(dev)
+        values_d = torch.as_tensor(np.asarray(frame_values, dtype=np.float32)).to(dev)
+        shared = coords_d.ndim == 2
+
+        all_losses, epoch_times = [], []
+        t0 = time.perf_counter()
+        for _ in range(cfg.epochs):
+            te = time.perf_counter()
+            losses = torch.empty(n_frames, device=dev)
+            for t in range(n_frames):
+                loss = loss_fn(model(coords_d if shared else coords_d[t], frame_idx=t), values_d[t])
+                optimizer.zero_grad(set_to_none=True)
+                loss.backward()
+                optimizer.step()
+                losses[t] = loss.detach()
+            all_losses.append(losses.cpu().numpy())  # the epoch's one host sync
+            epoch_times.append(time.perf_counter() - te)
+        return _result(all_losses, epoch_times, time.perf_counter() - t0)

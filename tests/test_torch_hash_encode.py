@@ -154,7 +154,8 @@ def test_cpu_path_does_not_count_launches():
     he.reset_launches()
     he.hash_encode_forward(enc, torch.from_numpy(table), torch.from_numpy(x))
     he.hash_encode_table_grad(enc, torch.from_numpy(x), torch.from_numpy(g))
-    assert he.LAUNCHES == {"hash_encode_forward": 0, "hash_encode_table_grad": 0}
+    assert he.LAUNCHES == {"hash_encode_forward": 0, "hash_encode_table_grad": 0,
+                           "hash_encode_coarse_forward": 0, "hash_encode_coarse_table_grad": 0}
 
 
 def test_init_range_and_seed():

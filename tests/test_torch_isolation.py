@@ -16,13 +16,14 @@ import torch
 
 import mri_interpolation_tpu_torch as port
 from mri_interpolation_tpu_torch import device as port_device
-from mri_interpolation_tpu_torch import launcher
+from mri_interpolation_tpu_torch import bench_kernels, launcher
 from mri_interpolation_tpu_torch.configs import RunConfig
 from mri_interpolation_tpu_torch.infer import evaluate_grid
 from mri_interpolation_tpu_torch.metrics import evaluate_reconstruction
-from mri_interpolation_tpu_torch.models import make_hash_mlp, make_siren
+from mri_interpolation_tpu_torch.models import make_hash_mlp, make_multi_hash_mlp, make_multi_siren, make_siren
 from mri_interpolation_tpu_torch.ops import build
 from mri_interpolation_tpu_torch.ops import fused_mlp as fm
+from mri_interpolation_tpu_torch.ops import hash_encode as he
 from mri_interpolation_tpu_torch.ops import probe as pr
 from mri_interpolation_tpu_torch.train import TrainConfig, Trainer
 
@@ -144,6 +145,43 @@ def test_kernel_paths_raise_instead_of_falling_back(monkeypatch):
         fm._backward_kernel(ws, bs, x, g, acts, True)
     with pytest.raises(RuntimeError, match="nvcc not found"):
         pr._library()
+    enc = bench_kernels.bench_geometry()
+    levels = he.coarse_onehot_levels(enc)
+    x, table, g = torch.zeros((5, 3)), enc.init(), torch.zeros((5, 2 * len(levels)))
+    for name, b, out in (("hash_encode_coarse_forward", table, torch.empty((5, 4))),
+                         ("hash_encode_coarse_table_grad", g, torch.zeros(table.shape))):
+        with pytest.raises(RuntimeError, match="nvcc not found"):
+            he._launch(name, x, b, out, enc, he.coarse_constants(enc, levels))
+    assert set(he.LAUNCHES.values()) == {0}
+
+
+MULTI = dict(dim_in=2, n_frames=2)
+
+
+def test_slice_three_entry_points_raise_without_a_card(no_card, tmp_path):
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_multi_siren(dim_hidden=8, n_layers=2, **MULTI)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_multi_hash_mlp(n_levels=2, log2_hashmap_size=8, dim_hidden=8, **MULTI)
+    model = make_multi_hash_mlp(n_levels=2, log2_hashmap_size=8, dim_hidden=8, device="cpu", **MULTI)
+    coords = np.random.default_rng(0).random((16, 2), dtype=np.float32)
+    values = np.zeros((2, 16, 1), dtype=np.float32)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Trainer(TrainConfig()).fit_frames(model, coords, values)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        evaluate_grid(model, (4, 4), frame_idx=1)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        bench_kernels.run()
+    out = tmp_path / "bench.json"
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        bench_kernels.main(["--out", str(out)])
+    assert not out.exists()
+    # the CPU, when asked for, works, and launches nothing
+    he.reset_launches()
+    fm.reset_launches()
+    Trainer(TrainConfig(epochs=1)).fit_frames(model, coords, values, device="cpu")
+    assert evaluate_grid(model, (4, 4), frame_idx=1, device="cpu").shape == (4, 4)
+    assert set(he.LAUNCHES.values()) == {0} and set(fm.LAUNCHES.values()) == {0}
 
 
 def test_evaluate_grid_refuses_a_model_on_another_device():

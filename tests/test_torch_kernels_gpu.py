@@ -1,15 +1,31 @@
-"""The CUDA kernels (hash encode, fused MLP, probe) against their plain
-PyTorch versions, on the card. Every test here carries the ``gpu`` marker and
+"""The CUDA kernels (hash encode of all levels and of the coarse levels,
+fused MLP, probe) against their plain PyTorch versions, on the card. Every test here carries the ``gpu`` marker and
 skips without a CUDA device: a CUDA kernel has no CPU mode. The file imports no JAX (the card's
 machine has none), so it runs there on its own:
 
     python -m pytest tests/test_torch_kernels_gpu.py --noconftest -q -p no:cacheprovider
 
-Tolerances of the hash kernels: forward atol 2e-6 (fp32 sums of 2^d products
-of magnitude <= 1 in another order); table gradient atol 1e-5 plus rtol 1e-5:
-fp32 atomics add in a run-dependent order, and the error grows with the terms
-a row sums (about sqrt(k) * 2^-24 * |sum|; the small tables here take ~200
-terms a row). Those of the fused MLP are stated above its tests below.
+Tolerances of the hash kernels (all levels, and the coarse levels alone):
+
+- forward: atol 2e-6 (fp32 sums of 2^d products of magnitude <= 1 in another
+  order). With x in [-1, 1] dense levels clamp the cell index and the weights
+  extrapolate (features reach ~5e5 on the tcnn geometry, with terms that
+  cancel), so there the bound is 2e-6 of the largest reference value (and at
+  least 2e-6).
+- table gradient: per (row, feature), ``he.atomic_sum_bound``:
+  1e-5 + 8 * 2^-24 * sum|g*w| over the terms the entry sums. fp32 atomics
+  add in a run-dependent order (the plain version's ``index_add_`` too, on
+  the card); with terms of both signs the rounding error grows with the
+  row's sum|terms|, not with |sum|: a random walk of partial sums gives a
+  deviation of about 0.5 * 2^-24 * sum|terms| per sum for these N(0, 1)
+  cotangents, 0.7 for the difference of two, and c = 8 is some 11
+  deviations (the derivation is in ``atomic_sum_bound``). On the d1 config
+  the largest bound, 4.1e-4 at a level-0 row of 2,028 terms (sum|terms|
+  831), is 640 times below the median term |g*w|, 0.26, so a dropped or
+  doubled term still fails (tests/test_torch_hash_coarse.py holds that on
+  the CPU).
+
+Those of the fused MLP are stated above its tests below.
 """
 
 import numpy as np
@@ -34,6 +50,9 @@ CONFIGS = {
 }
 
 
+ZERO = {name: 0 for name in he.LAUNCHES}
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -41,13 +60,15 @@ def cuda_device():
     return torch.device("cuda")
 
 
-def _inputs(cfg, n, device):
+def _inputs(cfg, n, device, g_cols=None):
+    """Encoder, x in [0, 1) (0 and 1 in the first two rows), a U(-1, 1)
+    table and an N(0, 1) cotangent of ``g_cols`` columns (default all levels')."""
     rng = np.random.default_rng(0)
     enc = HashGridEncoding(**cfg)
     x = rng.random((n, cfg["dim"]), dtype=np.float32)
     x[0], x[1] = 0.0, 1.0
     table = rng.uniform(-1, 1, (enc.total_size, cfg["n_features_per_level"])).astype(np.float32)
-    g = rng.standard_normal((n, enc.output_dim)).astype(np.float32)
+    g = rng.standard_normal((n, enc.output_dim if g_cols is None else g_cols)).astype(np.float32)
     return (enc, *(torch.from_numpy(a).to(device) for a in (x, table, g)))
 
 
@@ -59,11 +80,39 @@ def test_kernels_match_plain_versions(name, cuda_device):
     y = he.hash_encode_forward(enc, table, x)
     dt = he.hash_encode_table_grad(enc, x, g)
     torch.cuda.synchronize()
-    assert he.LAUNCHES == {"hash_encode_forward": 1, "hash_encode_table_grad": 1}
+    assert he.LAUNCHES == {**ZERO, "hash_encode_forward": 1, "hash_encode_table_grad": 1}
     np.testing.assert_allclose(y.cpu().numpy(), he.hash_encode_reference(enc, table, x).cpu().numpy(),
                                rtol=0, atol=2e-6)
-    np.testing.assert_allclose(dt.cpu().numpy(), he.hash_encode_table_grad_reference(enc, x, g).cpu().numpy(),
-                               rtol=1e-5, atol=1e-5)
+    _assert_within_atomic_bound(dt, he.hash_encode_table_grad_reference(enc, x, g), he.table_grad_abs_sum(enc, x, g))
+
+
+def _assert_within_atomic_bound(got, want, abs_sum):
+    bound = he.atomic_sum_bound(abs_sum)
+    excess = ((got - want).abs() - bound).max()
+    assert float(excess) <= 0.0, f"max |kernel - plain| exceeds the per-row bound by {float(excess)}"
+
+
+def _forward_bound(ref):
+    return 2e-6 * max(1.0, float(ref.abs().max()))
+
+
+OUTSIDE = {**{k: CONFIGS[k] for k in ("flagship", "d2", "hashed")},
+           "tcnn": dict(dim=3, n_levels=16, n_features_per_level=2, log2_hashmap_size=19, base_resolution=16,
+                        finest_resolution=None, per_level_scale=1.4)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", sorted(OUTSIDE))
+def test_kernels_match_plain_versions_outside_the_unit_cube(name, cuda_device):
+    """x in [-1, 1], what ``--zero_centered true`` feeds a hash model: dense
+    levels clamp the cell index at 0 and extrapolate the weights."""
+    enc, x, table, g = _inputs(OUTSIDE[name], 4099, cuda_device)
+    x = 2 * x - 1
+    y = he.hash_encode_forward(enc, table, x)
+    ref = he.hash_encode_reference(enc, table, x)
+    assert float((y - ref).abs().max()) <= _forward_bound(ref)
+    dt = he.hash_encode_table_grad(enc, x, g)
+    _assert_within_atomic_bound(dt, he.hash_encode_table_grad_reference(enc, x, g), he.table_grad_abs_sum(enc, x, g))
 
 
 @pytest.mark.gpu
@@ -72,7 +121,7 @@ def test_empty_batch_launches_nothing(cuda_device):
     he.reset_launches()
     assert he.hash_encode_forward(enc, table, x[:0]).shape == (0, 4)
     assert float(he.hash_encode_table_grad(enc, x[:0], g[:0]).abs().sum()) == 0.0
-    assert he.LAUNCHES == {"hash_encode_forward": 0, "hash_encode_table_grad": 0}
+    assert he.LAUNCHES == ZERO
 
 
 @pytest.mark.gpu
@@ -103,6 +152,99 @@ def test_model_gradients_on_card_match_cpu(cuda_device):
     for key, want in grads["cpu"].items():
         np.testing.assert_allclose(grads[str(cuda_device)][key].numpy(), want.numpy(), rtol=0, atol=1e-5,
                                    err_msg=key)
+
+
+# ---------------------------------------------------------------------------
+# the coarse-level pair (kernels 3-4)
+
+COARSE = {
+    # scripts/bench_pallas_exec.py section 2: levels 0-1 of 75 and 392 rows
+    "bench": dict(dim=3, n_levels=3, n_features_per_level=2, log2_hashmap_size=14, base_resolution=(4, 4, 2),
+                  finest_resolution=(16, 16, 8)),
+    # tests/test_pallas.py TestOneHotCoarseEncode: every level coarse
+    "paper": dict(dim=3, n_levels=3, n_features_per_level=2, log2_hashmap_size=11, base_resolution=(3, 3, 2),
+                  finest_resolution=(11, 11, 6), growth="paper"),
+    # the multi-frame HashMLP (scripts/experiments.py:238-243): levels 0-3, 3,778 rows, 30 KB
+    "multi_frame": dict(dim=2, n_levels=10, n_features_per_level=2, log2_hashmap_size=17, base_resolution=16,
+                        finest_resolution=None, per_level_scale=1.4),
+    # the same levels at F = 8: 121 KB of rows, past the 48 KB default (the opt-in)
+    "multi_frame_f8": dict(dim=2, n_levels=10, n_features_per_level=8, log2_hashmap_size=17, base_resolution=16,
+                           finest_resolution=None, per_level_scale=1.4),
+    "d1": CONFIGS["d1"],
+}
+# (geometry, N, lower end of x): ragged, one 352 x 352 frame, x in [-1, 1]
+COARSE_CASES = [("bench", 517, 0.0), ("bench", 65536, -1.0), ("paper", 517, 0.0), ("paper", 4099, -1.0),
+                ("multi_frame", 123904, 0.0), ("multi_frame", 517, -1.0), ("multi_frame_f8", 20000, 0.0),
+                ("d1", 4099, 0.0)]
+
+
+def _coarse_check(enc, x, table, g, max_rows=he.ONEHOT_MAX_ROWS):
+    levels = he.coarse_onehot_levels(enc, max_rows)
+    he.reset_launches()
+    y = he.hash_encode_coarse_forward(enc, table, x, max_rows)
+    dt = he.hash_encode_coarse_table_grad(enc, x, g, max_rows)
+    torch.cuda.synchronize()
+    assert he.LAUNCHES == {**ZERO, "hash_encode_coarse_forward": 1, "hash_encode_coarse_table_grad": 1}
+    ref = he.hash_encode_coarse_reference(enc, table, x, max_rows)
+    assert y.shape == ref.shape == (x.shape[0], len(levels) * enc.n_features_per_level)
+    assert float((y - ref).abs().max()) <= _forward_bound(ref)
+    _assert_within_atomic_bound(dt, he.hash_encode_coarse_table_grad_reference(enc, x, g, max_rows),
+                                he.table_grad_abs_sum(enc, x, g, levels))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,n,lo", COARSE_CASES, ids=[f"{c}-{n}-{lo:g}" for c, n, lo in COARSE_CASES])
+def test_coarse_kernels_match_plain_versions(name, n, lo, cuda_device):
+    enc = HashGridEncoding(**COARSE[name])
+    cols = len(he.coarse_onehot_levels(enc)) * enc.n_features_per_level
+    enc, x, table, g = _inputs(COARSE[name], n, cuda_device, g_cols=cols)
+    _coarse_check(enc, x * (1 - lo) + lo, table, g)
+
+
+@pytest.mark.gpu
+def test_coarse_kernels_stage_levels_in_groups(cuda_device):
+    """Coarse levels of 1,681 + 2,809 + 4,624 rows at F = 8 (291 KB) exceed a
+    block's 227 KB: the kernels stage levels 0-1, then level 2."""
+    cfg = dict(dim=2, n_levels=4, n_features_per_level=8, log2_hashmap_size=16, base_resolution=40,
+               finest_resolution=None, per_level_scale=1.3)
+    enc = HashGridEncoding(**cfg)
+    levels = he.coarse_onehot_levels(enc, 7000)
+    assert [int(enc.level_sizes[l]) for l in levels] == [1681, 2809, 4624]
+    enc, x, table, g = _inputs(cfg, 3001, cuda_device, g_cols=len(levels) * 8)
+    _coarse_check(enc, x, table, g, max_rows=7000)
+    with pytest.raises(ValueError, match="shared memory"):  # a level of 7,744 rows x 8 alone: 248 KB
+        he.hash_encode_coarse_forward(enc, table, x, max_rows=8000)
+
+
+@pytest.mark.gpu
+def test_coarse_empty_batch_and_bad_tensors(cuda_device):
+    enc, x, table, g = _inputs(COARSE["bench"], 16, cuda_device, g_cols=4)
+    he.reset_launches()
+    assert he.hash_encode_coarse_forward(enc, table, x[:0]).shape == (0, 4)
+    assert float(he.hash_encode_coarse_table_grad(enc, x[:0], g[:0]).abs().sum()) == 0.0
+    assert he.LAUNCHES == ZERO
+    with pytest.raises(ValueError, match="is on"):
+        he.hash_encode_coarse_forward(enc, table, x.cpu())
+    with pytest.raises(ValueError, match="shape"):
+        he.hash_encode_coarse_table_grad(enc, x, torch.zeros((16, 6), device=cuda_device))
+    with pytest.raises(ValueError, match="contiguous"):
+        he.hash_encode_coarse_forward(enc, table, x.t().contiguous().t())
+
+
+@pytest.mark.gpu
+def test_coarse_autograd_on_card_matches_cpu(cuda_device):
+    """``hash_encode_coarse``'s table gradient (HashEncodeCoarse) on the card
+    equals the CPU's within the per-row bound; zero outside the coarse rows."""
+    enc, x, table, _ = _inputs(COARSE["multi_frame"], 5000, "cpu", g_cols=8)
+    tgt = torch.from_numpy(np.random.default_rng(5).standard_normal((5000, 8)).astype(np.float32))
+    grads = {}
+    for dev in ("cpu", cuda_device):
+        t = table.clone().to(dev).requires_grad_(True)
+        ((he.hash_encode_coarse(enc, t, x.to(dev)) - tgt.to(dev)) ** 2).mean().backward()
+        grads[str(dev)] = t.grad.cpu()
+    g = 2 * (he.hash_encode_coarse_reference(enc, table, x) - tgt) / tgt.numel()
+    _assert_within_atomic_bound(grads[str(cuda_device)], grads["cpu"], he.table_grad_abs_sum(enc, x, g, range(4)))
+    assert not grads[str(cuda_device)][int(enc.level_offsets[4]):].any()
 
 
 # ---------------------------------------------------------------------------

@@ -5,7 +5,8 @@ of the port against the JAX package and holds it to its tolerance.
 the Markdown table kept in PERF.md. Each measurement runs once per process
 (cached), whichever rows read it. The reasons for each tolerance are in the test files
 of the same functions (test_torch_hash_encode, _hash_mlp, _trainer, _pipeline,
-_fused_mlp, _siren), whose helpers the slice-2 rows reuse.
+_fused_mlp, _siren, _hash_coarse, _multi), whose helpers the slice-2 and
+slice-3 rows reuse.
 """
 
 import functools
@@ -210,6 +211,77 @@ def _siren_grid_error():
     return _max_err([(evaluate_grid(tm, (12, 10, 6), lo=-1.0, chunk_size=256, device="cpu"), want)])
 
 
+@functools.lru_cache(maxsize=None)
+def _coarse_errors(jax_path: str):
+    """Max |port - JAX| of the coarse encode and of its table gradient over
+    test_torch_hash_coarse's geometries, x in [0, 1) and a ragged N."""
+    import test_torch_hash_coarse as tc
+
+    fwd = grad = 0.0
+    for name in sorted(tc.CONFIGS):
+        enc, jenc, x, table, g = tc._inputs(tc.CONFIGS[name], 517)
+        got = he.hash_encode_coarse_forward(enc, torch.from_numpy(table), torch.from_numpy(x)).numpy()
+        dt = he.hash_encode_coarse_table_grad(enc, torch.from_numpy(x), torch.from_numpy(g)).numpy()
+        if jax_path == "pallas":
+            want, want_grad = tc._jax_coarse(jenc, table, x, g)
+            grad = max(grad, _max_err([(dt, want_grad)]))
+        else:
+            want = tc._apply_columns(jenc, table, x, he.coarse_onehot_levels(enc))
+        fwd = max(fwd, _max_err([(got, want)]))
+    return fwd, grad
+
+
+@functools.lru_cache(maxsize=None)
+def _multi_model_errors(kind: str):
+    """Max |port - JAX| of a multi-frame model's output and parameter
+    gradients at frames 0 and 2."""
+    import test_torch_multi as tm_
+
+    out_err = grad_err = 0.0
+    for frame in (0, 2):
+        jm, params, state, tm = tm_._pair(kind)
+        coords, values = tm_._frames(kind)
+        x, y = coords[:97], values[frame, :97]
+
+        def loss(p):
+            pred, _ = jm.apply(p, state, jnp.asarray(x), train=True, frame_idx=frame)
+            return jnp.mean((pred - jnp.asarray(y)) ** 2), pred
+
+        (_, pred), grads = jax.value_and_grad(loss, has_aux=True)(params)
+        out = tm(torch.from_numpy(x), frame_idx=frame)
+        torch.mean((out - torch.from_numpy(y)) ** 2).backward()
+        named = dict(tm.named_parameters())
+        out_err = max(out_err, _max_err([(out.detach().numpy(), pred)]))
+        grad_err = max(grad_err, _max_err((named[k].grad.numpy(), v.numpy())
+                                          for k, v in params_from_jax(jax.device_get(grads)).items()))
+    return out_err, grad_err
+
+
+@functools.lru_cache(maxsize=None)
+def _fit_frames_rel(kind: str, weight_decay: float):
+    """Max relative difference of fit_frames' losses (2 epochs x 3 frames),
+    port vs JAX trainer, from one init."""
+    import test_torch_multi as tm_
+
+    jm, params, state, tm = tm_._pair(kind)
+    coords, values = tm_._frames(kind)
+    cfg = dict(batch_size=coords.shape[0], epochs=2, lr=1e-4 if kind == "siren" else 5e-3,
+               weight_decay=weight_decay, seed=0)
+    jres = JaxTrainer(JaxTrainConfig(**cfg)).fit_frames(jm, coords, values, params=params, state=state)
+    tres = Trainer(TrainConfig(**cfg)).fit_frames(tm, coords, values, device="cpu")
+    return float(np.max(np.abs(tres.losses / np.asarray(jres.losses) - 1)))
+
+
+@functools.lru_cache(maxsize=None)
+def _frame_grid_error(kind: str):
+    import test_torch_multi as tm_
+
+    jm, params, state, tm = tm_._pair(kind, seed=3)
+    lo = -1.0 if kind == "siren" else 0.0
+    want = jax_evaluate_grid(jm, params, state, tm_.SHAPE, lo=lo, chunk_size=64, frame_idx=1)
+    return _max_err([(evaluate_grid(tm, tm_.SHAPE, lo=lo, chunk_size=64, device="cpu", frame_idx=1), want)])
+
+
 # (slice, function, tolerance, measure) -> each row's measure returns its max error
 ROWS = {
     "encode_fwd_pallas": ("encoding", "hash_encode_forward vs Pallas interpret", 1e-6,
@@ -250,6 +322,28 @@ ROWS = {
                          lambda: _slice2_model_errors("relu_plain")[1]),
     "relu_plain_fit": ("tcnn HashMLP", "Trainer.fit loss curve with adam_tcnn, rel", 1e-4,
                        lambda: _slice2_fit_rel("relu_plain")),
+    "coarse_fwd_pallas": ("coarse encode", "hash_encode_coarse_forward vs one-hot Pallas interpret", 1e-5,
+                          lambda: _coarse_errors("pallas")[0]),
+    "coarse_fwd_apply": ("coarse encode", "hash_encode_coarse_forward vs apply's coarse columns", 1e-6,
+                         lambda: _coarse_errors("apply")[0]),
+    "coarse_grad_pallas": ("coarse encode", "hash_encode_coarse_table_grad vs the interpret path's VJP", 1e-5,
+                           lambda: _coarse_errors("pallas")[1]),
+    "multi_siren_forward": ("multi-frame", "make_multi_siren output, frames 0 and 2", 2e-5,
+                            lambda: _multi_model_errors("siren")[0]),
+    "multi_siren_grads": ("multi-frame", "make_multi_siren parameter gradients (stacked)", 2e-5,
+                          lambda: _multi_model_errors("siren")[1]),
+    "multi_hash_forward": ("multi-frame", "make_multi_hash_mlp output, frames 0 and 2", 1e-5,
+                           lambda: _multi_model_errors("hash")[0]),
+    "multi_hash_grads": ("multi-frame", "make_multi_hash_mlp parameter gradients (stacked)", 1e-5,
+                         lambda: _multi_model_errors("hash")[1]),
+    "fit_frames_siren": ("multi-frame", "Trainer.fit_frames loss curve, rel, multi_siren, weight decay 1e-5", 1e-4,
+                         lambda: _fit_frames_rel("siren", 1e-5)),
+    "fit_frames_hash": ("multi-frame", "Trainer.fit_frames loss curve, rel, multi_hash_mlp, weight decay 1e-5",
+                        1e-4, lambda: _fit_frames_rel("hash", 1e-5)),
+    "frame_grid_siren": ("multi-frame", "evaluate_grid (12,10) frame 1, multi_siren at lo=-1", 2e-5,
+                         lambda: _frame_grid_error("siren")),
+    "frame_grid_hash": ("multi-frame", "evaluate_grid (12,10) frame 1, multi_hash_mlp", 1e-4,
+                        lambda: _frame_grid_error("hash")),
 }
 
 

@@ -235,6 +235,7 @@ def test_relu_plain_loss_curve_with_adam_tcnn_matches_jax():
 def test_registry_names():
     assert get_model_factory("siren") is make_siren and get_model_factory("SirenNet") is make_siren
     assert get_model_factory("TcnnHashMLP") is make_hash_mlp
-    assert set(REGISTRY) == {"siren", "SirenNet", "hash_mlp", "HashMLP", "TcnnHashMLP"}
+    assert set(REGISTRY) == {"siren", "SirenNet", "hash_mlp", "HashMLP", "TcnnHashMLP",
+                             "multi_siren", "MultiSiren", "multi_hash_mlp", "MultiHashMLP"}
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         get_model_factory("modulated_siren")
