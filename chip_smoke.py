@@ -10,14 +10,17 @@ Phases, each printed with its time as it ends:
 1. device: the card's name and power limit (nvidia-smi);
 2. build: the CUDA kernels from ``mri_interpolation_tpu_torch/ops/csrc`` with
    nvcc (one process per source, all at once), then the probe kernel held
-   exactly to ``2 * x``;
+   exactly to ``2 * x`` and timed against ``torch.mul`` as medians of 200
+   launches each;
 3. kernels: each kernel against its plain PyTorch version on the card, at the
    main paths' shapes (and, for the hash kernels, a hashed geometry; for the
-   fused MLP, the ``siren 352x5`` shape and a small gelu stack; for the
-   coarse-level pair, the kernel bench's geometry, the JAX tests' geometry
-   and the multi-frame HashMLP's levels 0-3 at one 352 x 352 frame, with
-   kernel 1 and 2 timed beside them on the same levels and on the whole
-   multi-frame encoder), with times and bounds;
+   fused MLP, the ``siren 352x5`` shape, a small gelu stack and the
+   multi-frame models' three stacks at one frame; for the coarse-level pair,
+   the kernel bench's geometry, the JAX tests' geometry and the multi-frame
+   HashMLP's levels 0-3 at one 352 x 352 frame, with kernels 1 and 2 beside
+   them on the same levels, on the whole multi-frame encoder and on it in
+   raster order), with times, bounds (for kernels 5-6 also the 3xTF32
+   tensor-core bound) and ``index_add_``'s time beside kernels 2 and 4;
 4. small fit: ``Trainer.fit`` on the card against the same fit on the CPU, for
    the flagship HashMLP, a small SIREN and a small ``relu_plain`` HashMLP
    with ``adam_tcnn``; ``Trainer.fit_frames`` likewise for a small
@@ -64,6 +67,7 @@ import numpy as np
 
 H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
 H100_FP32_FLOPS = 67e12  # fp32 outside the tensor cores, H100 SXM data sheet
+H100_TF32_FLOPS = 494.7e12  # dense TF32 on the tensor cores, H100 SXM data sheet
 
 FWD_ATOL = 2e-6  # fp32 sum of 8 products of magnitude <= 1, taken in another order
 GRAD_ATOL = 1e-5  # fp32 atomics in run-dependent order, a few terms of |g*w| <= 4 per row
@@ -201,6 +205,38 @@ def kernel_times(call, name: str, per_call: bool = False) -> dict:
             "call_ms": call_ms}
 
 
+def launch_stats(fn, name: str, launches: int = 200) -> dict:
+    """Device microseconds of each of ``launches`` launches of the kernel
+    whose name holds ``name`` (each profiler event is one launch; by CUDA
+    events around each call where the profiler records none): the median,
+    quartiles and extremes."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(10):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(launches):
+            fn()
+        torch.cuda.synchronize()
+    us = [evt.time_range.elapsed_us() for evt in prof.events()
+          if getattr(evt, "device_type", None) == torch.autograd.DeviceType.CUDA and name in evt.name]
+    source = "profiler"
+    if len(us) < launches:
+        source, us = "events", []
+        for _ in range(launches):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            us.append(start.elapsed_time(end) * 1e3)
+    q = np.percentile(np.asarray(us, dtype=np.float64), [0, 25, 50, 75, 100])
+    return {"launches": len(us), "median_us": q[2], "p25_us": q[1], "p75_us": q[3], "min_us": q[0],
+            "max_us": q[4], "source": source}
+
+
 def check_kernels(torch, he, enc_flagship, enc_hashed, dev):
     """Each kernel against its plain version; returns per-kernel rows."""
     from mri_interpolation_tpu_torch.infer import flat_index_to_coords
@@ -265,7 +301,9 @@ def check_kernels(torch, he, enc_flagship, enc_hashed, dev):
                           n * L * flops_per_point_level(d, F, grad=True))
         call = lambda: he.hash_encode_table_grad(enc, x, g)  # noqa: E731
         row = {"geometry": geom, "n": n, "what": what, "max_abs_err": err,
-               **kernel_times(call, "hash_encode_table_grad_kernel"),
+               # every kernel of the call: the private and the global levels' (table_grad_plan)
+               **kernel_times(call, "hash_encode_table_grad", per_call=True),
+               "plan": he.table_grad_plan(enc, n)._asdict(),
                "plain_ms": time_ms(lambda: he.hash_encode_table_grad_reference(enc, x, g), iters=5),
                "bound_ms": gb, "bound_by": gk,
                # every kernel that the one index_add_ call launches
@@ -275,6 +313,49 @@ def check_kernels(torch, he, enc_flagship, enc_hashed, dev):
             f"  per call {row['call_ms']:.4f} ms  plain {row['plain_ms']:.4f} ms"
             f"  index_add_ {row['library_ms']} ms  bound {gb:.5f} ms ({gk})")
     return rows
+
+
+def encoder_rows(torch, he, enc, table, x, g, what: str) -> dict:
+    """Kernels 1 and 2 on the multi-frame encoder ``enc`` at one frame,
+    against their plain versions (forward: 2e-6 of the largest value; table
+    gradient: the per-entry atomic bound), with times, bounds, the plain
+    versions' and, for kernel 2, ``index_add_``'s."""
+    n, d, L, F = x.shape[0], enc.input_dim, enc.n_levels, enc.n_features_per_level
+    out = he.hash_encode_forward(enc, table, x)
+    ref = he.hash_encode_reference(enc, table, x)
+    dt = he.hash_encode_table_grad(enc, x, g)
+    dref = he.hash_encode_table_grad_reference(enc, x, g)
+    abs_sum = he.table_grad_abs_sum(enc, x, g)
+    torch.cuda.synchronize()
+    ferr, tol = float((out - ref).abs().max()), FWD_ATOL * max(1.0, float(ref.abs().max()))
+    if not math.isfinite(ferr) or ferr > tol:
+        fail(f"hash_encode_forward multi_frame {what}: max abs err {ferr} > {tol}")
+    gerr = float((dt - dref).abs().max())
+    excess = float(((dt - dref).abs() - he.atomic_sum_bound(abs_sum)).max())
+    if not math.isfinite(gerr) or excess > 0.0:
+        fail(f"hash_encode_table_grad multi_frame {what}: max abs err {gerr}, {excess} over the per-row bound")
+    ids, w = enc.corner_ids_and_weights(x)
+    touched = int(torch.unique(ids).numel())
+    contrib = (g.reshape(n, L, 1, F) * w.unsqueeze(-1)).reshape(-1, F)
+    flat_ids, zeros = ids.reshape(-1), torch.zeros((enc.total_size, F), device=x.device)
+    fb, fk = bound_ms(4.0 * (n * d + touched * F + n * L * F), n * L * flops_per_point_level(d, F, grad=False))
+    gb, gk = bound_ms(4.0 * (n * d + n * L * F + enc.total_size * F), n * L * flops_per_point_level(d, F, grad=True))
+    frow = {"geometry": "multi_frame", "n": n, "what": what, "max_abs_err": ferr, "tolerance": tol,
+            **kernel_times(lambda: he.hash_encode_forward(enc, table, x), "hash_encode_forward_kernel"),
+            "plain_ms": time_ms(lambda: he.hash_encode_reference(enc, table, x), iters=5),
+            "bound_ms": fb, "bound_by": fk, "library_ms": None}
+    grow = {"geometry": "multi_frame", "n": n, "what": what, "max_abs_err": gerr,
+            "largest_bound": float(he.atomic_sum_bound(abs_sum).max()),
+            **kernel_times(lambda: he.hash_encode_table_grad(enc, x, g), "hash_encode_table_grad", per_call=True),
+            "plan": he.table_grad_plan(enc, n)._asdict(),
+            "plain_ms": time_ms(lambda: he.hash_encode_table_grad_reference(enc, x, g), iters=5),
+            "bound_ms": gb, "bound_by": gk,
+            "library_ms": kernel_ms(lambda: zeros.index_add_(0, flat_ids, contrib), "")}
+    for label, row in (("forward   ", frow), ("table_grad", grow)):
+        log(f"  {label} multi_frame N={n:>7,d} ({what}): err {row['max_abs_err']:.3e}  kernel {row['ms']} ms"
+            f"  per call {row['call_ms']:.4f} ms  plain {row['plain_ms']:.4f} ms"
+            f"  library {row['library_ms']} ms  bound {row['bound_ms']:.5f} ms ({row['bound_by']})")
+    return {"hash_encode_forward": frow, "hash_encode_table_grad": grow}
 
 
 def check_coarse_kernels(torch, he, dev):
@@ -370,20 +451,34 @@ def check_coarse_kernels(torch, he, dev):
             if e2 > 0.0:
                 fail(f"kernel 2 on levels 0-3 differs from kernel 4 by {e2} over the per-row bound")
             g_all = torch.randn((n, multi.output_dim), generator=gen).to(dev)
-            fwd1, grad2 = "hash_encode_forward_kernel", "hash_encode_table_grad_kernel"
-            beside = {
-                "kernel1_same_levels_ms": kernel_ms(lambda: he.hash_encode_forward(multi4, t4, x), fwd1),
-                "kernel2_same_levels_ms": kernel_ms(lambda: he.hash_encode_table_grad(multi4, x, g), grad2),
-                "kernel1_all_levels_ms": kernel_ms(lambda: he.hash_encode_forward(multi, table, x), fwd1),
-                "kernel2_all_levels_ms": kernel_ms(lambda: he.hash_encode_table_grad(multi, x, g_all), grad2),
-                "kernel1_equals_kernel3": bool(torch.equal(same, out)),
-            }
-            frow["beside"] = beside
-            log(f"  beside, N={n:,d}: kernel 1 on levels 0-3 {beside['kernel1_same_levels_ms']} ms "
-                f"(bitwise equal to kernel 3: {beside['kernel1_equals_kernel3']}), on all 10 levels "
-                f"{beside['kernel1_all_levels_ms']} ms; kernel 2 on levels 0-3 {beside['kernel2_same_levels_ms']} ms, "
-                f"on all 10 levels {beside['kernel2_all_levels_ms']} ms")
+            xs = torch.linspace(0, 1, FRAME[0])
+            raster = torch.stack(torch.meshgrid(xs, xs, indexing="ij"), dim=-1).reshape(-1, 2).to(dev)
+            for what_b, enc_b, t_b, x_b, g_b in (("levels 0-3", multi4, t4, x, g), ("all 10 levels", multi, table, x, g_all),
+                                                 ("all 10 levels, raster order", multi, table, raster, g_all)):
+                for name, row in encoder_rows(torch, he, enc_b, t_b, x_b, g_b, what_b).items():
+                    rows.setdefault(name, []).append(row)
+            frow["beside"] = {"kernel1_equals_kernel3": bool(torch.equal(same, out))}
+            log(f"  beside, N={n:,d}: kernel 1 on levels 0-3 bitwise equal to kernel 3: "
+                f"{frow['beside']['kernel1_equals_kernel3']}")
     return rows
+
+
+def mlp_macs(dims, batch: int, backward: bool, need_dx: bool) -> int:
+    """Multiply-adds of the fused MLP's products: the forward's, or the
+    backward's (the recomputed forward, dW for every layer, dz_l W_l^T for
+    every layer above the first and for the first when dx is asked for)."""
+    macs = [k * n for k, n in zip(dims[:-1], dims[1:])]
+    if not backward:
+        return batch * sum(macs)
+    return batch * (2 * sum(macs) + sum(macs[1:]) + (macs[0] if need_dx else 0))
+
+
+def tensor_core_bound_ms(dims, batch: int, backward: bool, need_dx: bool) -> float:
+    """The least time for fp32-accurate products on the tensor cores: three
+    TF32 MMAs per product (3xTF32) at the H100 SXM's dense TF32 rate, or the
+    bytes at its memory rate, whichever is larger."""
+    nbytes, _ = mlp_work(dims, batch, backward, need_dx)
+    return max(nbytes / H100_BYTES_PER_S, 3 * 2.0 * mlp_macs(dims, batch, backward, need_dx) / H100_TF32_FLOPS) * 1e3
 
 
 def mlp_work(dims, batch: int, backward: bool, need_dx: bool):
@@ -408,9 +503,11 @@ def check_fused_mlp(torch, fm, dev):
     """Kernels 5 and 6 against their plain versions at the shapes of paths A
     and B, the siren 352x5 shape and a small gelu stack; returns per-kernel
     rows."""
-    from mri_interpolation_tpu_torch.models import make_hash_mlp, make_siren
+    from mri_interpolation_tpu_torch.models import make_hash_mlp, make_multi_hash_mlp, make_multi_siren, make_siren
 
     gen = torch.Generator(device="cpu").manual_seed(1)
+    multi_siren = make_multi_siren(**{**MULTI_SIREN, "n_frames": 1}, device=dev)
+    multi_hash = make_multi_hash_mlp(**{**MULTI_HASH, "n_frames": 1}, device=dev)
     siren_a = make_siren(3, dim_hidden=128, n_layers=6, device=dev).params
     siren_352 = make_siren(3, dim_hidden=352, n_layers=5, device=dev).params
     tcnn = make_hash_mlp(3, n_levels=16, n_features_per_level=2, log2_hashmap_size=19, base_resolution=16,
@@ -431,6 +528,11 @@ def check_fused_mlp(torch, fm, dev):
         ("B train step", [l.params for l in tcnn.layers], fm.mlp_acts(1, "relu"), 10_000, -0.5, True, True),
         ("siren 352x5", *siren_stack(siren_352, 5), 20_000, -1.0, True, False),
         ("gelu small", gelu_layers, fm.mlp_acts(2, "gelu"), 1000, -1.0, True, True),
+        # the multi-frame paths' stacks at one 352 x 352 frame
+        ("multi_siren enc", *siren_stack(multi_siren.encoders.params(0), 4), FRAME[0] * FRAME[1], -1.0, True, False),
+        ("multi_siren dec", *siren_stack(multi_siren.decoder.params(), 4), FRAME[0] * FRAME[1], -1.0, True, True),
+        ("multi_hash dec", [l.params for l in multi_hash.decoder], fm.mlp_acts(1, "relu"), FRAME[0] * FRAME[1], -1.0,
+         True, True),
     ]
     rows = {"fused_mlp_forward": [], "fused_mlp_backward": []}
     with torch.no_grad():
@@ -450,16 +552,23 @@ def check_fused_mlp(torch, fm, dev):
             row = {"what": what, "dims": dims, "n": n, "max_abs_err": err, "tolerance_share": share,
                    **kernel_times(call, "fused_mlp_forward_kernel"),
                    "plain_ms": time_ms(lambda: fm.mlp_forward_reference(ws, bs, x, acts), iters=5),
-                   "bound_ms": fb, "bound_by": fk, "library_ms": None}
+                   "bound_ms": fb, "bound_by": fk, "bound_tc_ms": tensor_core_bound_ms(dims, n, False, False),
+                   "library_ms": None}
             rows["fused_mlp_forward"].append(row)
-            log(f"  mlp forward  {what:13s} dims {dims[0]}-{dims[1]}x{len(dims) - 2}-{dims[-1]} N={n:>7,d}: "
+            log(f"  mlp forward  {what:15s} dims {dims[0]}-{dims[1]}x{len(dims) - 2}-{dims[-1]} N={n:>7,d}: "
                 f"err {err:.3e}  kernel {row['ms']} ms  per call {row['call_ms']:.4f} ms  "
-                f"plain {row['plain_ms']:.4f} ms  bound {fb:.5f} ms ({fk})")
+                f"plain {row['plain_ms']:.4f} ms  bound {fb:.5f} ms ({fk}), 3xTF32 {row['bound_tc_ms']:.5f} ms")
             if not backward:
                 continue
             g = torch.randn((n, dims[-1]), generator=gen).to(dev)
             dws, dbs, dx = fm.mlp_backward(ws, bs, x, g, acts, need_dx)
-            rdws, rdbs, rdx = fm.mlp_backward_reference(ws, bs, x, g, acts, need_dx)
+            if what.startswith("multi_"):
+                # 123,904 rows: relu's derivative from the forward kernel's own z, which the backward repeats bit for
+                # bit (some of 7.9 M pre-activations lie within rounding of 0, where cuBLAS may give the other sign)
+                rdws, rdbs, rdx = fm.mlp_backward_reference_masked(ws, bs, x, g, acts, need_dx,
+                                                                   fm.relu_masks(ws, bs, x, acts))
+            else:
+                rdws, rdbs, rdx = fm.mlp_backward_reference(ws, bs, x, g, acts, need_dx)
             torch.cuda.synchronize()
             pairs = [(f"dW{l}", a, b) for l, (a, b) in enumerate(zip(dws, rdws))]
             pairs += [(f"db{l}", a, b) for l, (a, b) in enumerate(zip(dbs, rdbs))]
@@ -480,10 +589,12 @@ def check_fused_mlp(torch, fm, dev):
                    # the tile kernel and the weight-gradient kernel of one call
                    **kernel_times(call, "fused_mlp_", per_call=True),
                    "plain_ms": time_ms(lambda: fm.mlp_backward_reference(ws, bs, x, g, acts, need_dx), iters=5),
-                   "bound_ms": gb, "bound_by": gk, "library_ms": None}
+                   "bound_ms": gb, "bound_by": gk, "bound_tc_ms": tensor_core_bound_ms(dims, n, True, need_dx),
+                   "library_ms": None}
             rows["fused_mlp_backward"].append(row)
-            log(f"  mlp backward {what:13s} N={n:>7,d} dx={need_dx!s:5s}: err {err:.3e}  kernel {row['ms']} ms  "
-                f"per call {row['call_ms']:.4f} ms  plain {row['plain_ms']:.4f} ms  bound {gb:.5f} ms ({gk})")
+            log(f"  mlp backward {what:15s} N={n:>7,d} dx={need_dx!s:5s}: err {err:.3e}  kernel {row['ms']} ms  "
+                f"per call {row['call_ms']:.4f} ms  plain {row['plain_ms']:.4f} ms  bound {gb:.5f} ms ({gk}), "
+                f"3xTF32 {row['bound_tc_ms']:.5f} ms")
     return rows
 
 
@@ -496,10 +607,15 @@ def check_probe(torch, pr, dev):
     pr.check_build(dev)
     n = x.numel()
     pb, pk = bound_ms(4.0 * 2 * n, float(n))
+    # each kernel alone, 200 launches: medians and spread (one profiler reading sits at an empty launch's length)
+    probe_stats = launch_stats(lambda: pr.probe(x), "probe_double_kernel")
+    mul_stats = launch_stats(lambda: torch.mul(x, 2.0), "")
     return {"what": "build check", "n": n, "max_abs_err": 0.0,
             **kernel_times(lambda: pr.probe(x), "probe_double_kernel"),
             "plain_ms": time_ms(lambda: pr.probe_reference(x)), "bound_ms": pb, "bound_by": pk,
-            "library_ms": kernel_ms(lambda: torch.mul(x, 2.0), "")}
+            "library_ms": kernel_ms(lambda: torch.mul(x, 2.0), ""),
+            "launch_stats": {"probe": probe_stats, "torch_mul": mul_stats,
+                             "probe_slower_beyond_spread": bool(probe_stats["p25_us"] > mul_stats["p75_us"])}}
 
 
 def small_fit_matches_cpu(torch, name: str, make_model, cfg, zero_centered: bool = False) -> float:
@@ -829,6 +945,12 @@ def main() -> int:
     probe_row = check_probe(torch, pr, dev)
     log(f"[build] probe kernel exact against 2 * x on {pr.PROBE_SHAPE}: kernel {probe_row['ms']} ms, "
         f"plain {probe_row['plain_ms']:.4f} ms, torch.mul {probe_row['library_ms']} ms")
+    for who, st in probe_row["launch_stats"].items():
+        if isinstance(st, dict):
+            log(f"[build] {who}: {st['launches']} launches ({st['source']}): median {st['median_us']:.3f} us, "
+                f"quartiles {st['p25_us']:.3f}-{st['p75_us']:.3f} us, range {st['min_us']:.3f}-{st['max_us']:.3f} us")
+    log(f"[build] probe slower than torch.mul beyond the spread (its p25 > mul's p75): "
+        f"{probe_row['launch_stats']['probe_slower_beyond_spread']}")
 
     # 3. kernels against their plain versions
     t0 = time.perf_counter()
@@ -839,7 +961,8 @@ def main() -> int:
     log(f"[kernels] flagship: {flagship.total_size:,d} rows, dense {flagship.level_dense.tolist()}; "
         f"hashed16: {hashed.total_size:,d} rows, {int((~hashed.level_dense).sum())} of 16 levels hashed")
     rows = check_kernels(torch, he, flagship, hashed, dev)
-    rows.update(check_coarse_kernels(torch, he, dev))
+    for name, krows in check_coarse_kernels(torch, he, dev).items():
+        rows.setdefault(name, []).extend(krows)
     rows.update(check_fused_mlp(torch, fm, dev))
     rows["probe"] = [probe_row]
     log(f"[kernels] done in {time.perf_counter() - t0:.1f} s")
@@ -905,6 +1028,7 @@ def main() -> int:
             "max_abs_err": max(r["max_abs_err"] for r in krows),
             "ms": main_row["ms"], "plain_ms": main_row["plain_ms"], "bound_ms": main_row["bound_ms"],
             "bound_by": main_row["bound_by"], "library_ms": main_row["library_ms"],
+            **({"bound_tc_ms": main_row["bound_tc_ms"]} if "bound_tc_ms" in main_row else {}),
             "shapes": krows,
         })
     log(f"[done] {time.perf_counter() - t_all:.1f} s in all")

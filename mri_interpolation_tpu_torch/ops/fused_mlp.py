@@ -41,7 +41,10 @@ __all__ = [
     "mlp_backward",
     "mlp_forward_reference",
     "mlp_backward_reference",
+    "relu_masks",
+    "mlp_backward_reference_masked",
     "shared_bytes",
+    "scratch_shape",
     "FusedMLP",
     "fused_mlp_forward",
     "fused_mlp_apply",
@@ -53,9 +56,13 @@ LAUNCHES = {"fused_mlp_forward": 0, "fused_mlp_backward": 0}
 
 MAX_LAYERS = 16  # csrc/fused_mlp.cu kMaxLayers
 _ACT_CODES = {"id": 0, "relu": 1, "gelu": 2, "sine": 3}
-# csrc/fused_mlp.cu: tile rows, staged chunk (K x padded N), Hopper's per-block limit
+# csrc/fused_mlp.cu: the forward's tile rows and staged chunk (K x padded N),
+# Hopper's per-block limit
 _TILE_ROWS, _CHUNK_K, _CHUNK_LD = 32, 32, 132
 _MAX_SHARED_BYTES = 232448
+# the backward: its largest row tile (the scratch is padded to it), the
+# weight-gradient tile (dW in 128 x 128 blocks) and its staged rows
+_BWD_MAX_TILE_ROWS, _GRAD_TILE, _GRAD_ROWS = 64, 128, 32
 # weight-gradient blocks aimed for (about two per SM of an H100) and the
 # fewest rows one of them sums
 _GRAD_BLOCKS, _MIN_SLICE_ROWS = 264, 256
@@ -124,20 +131,45 @@ def mlp_backward_reference(weights: Sequence[torch.Tensor], biases: Sequence[tor
     computes them: recompute the forward keeping every z, then
     dz = g * act'(z) and, layer by layer downwards, dW = h^T dz,
     db = sum(dz), dz = (dz W^T) * act'(z_prev); dx = dz_0 W_0^T."""
+    return mlp_backward_reference_masked(weights, biases, x, g, acts, need_dx, {})
+
+
+def relu_masks(weights: Sequence[torch.Tensor], biases: Sequence[torch.Tensor], x: torch.Tensor,
+               acts: Sequence[Act]) -> dict:
+    """{l: z_l > 0} for every relu layer l, with z_l from :func:`mlp_forward`
+    of the stack cut after layer l (identity there): on the card, kernel 5,
+    whose fp32 product the backward kernel repeats bit for bit for relu
+    layers; on the CPU, the plain version. No autograd."""
+    with torch.no_grad():
+        return {l: mlp_forward(weights[:l + 1], biases[:l + 1], x, tuple(acts[:l]) + (("id",),)) > 0
+                for l, a in enumerate(acts) if a[0] == "relu"}
+
+
+def mlp_backward_reference_masked(weights: Sequence[torch.Tensor], biases: Sequence[torch.Tensor],
+                                  x: torch.Tensor, g: torch.Tensor, acts: Sequence[Act], need_dx: bool,
+                                  masks: dict):
+    """:func:`mlp_backward_reference` with the derivative of relu layer l
+    taken from ``masks[l]`` (:func:`relu_masks`): the yardstick of a relu
+    stack at sizes where some pre-activation lies within rounding of 0, so
+    that two orders of additions disagree on its sign."""
     hs, zs = [x], []
     for w, b, a in zip(weights, biases, acts):
         zs.append(hs[-1] @ w + b)
         hs.append(act_apply(a, zs[-1]))
+
+    def grad(l):
+        return masks[l].to(x.dtype) if l in masks else act_grad(acts[l], zs[l])
+
     n_layers = len(weights)
     dws: List[Optional[torch.Tensor]] = [None] * n_layers
     dbs: List[Optional[torch.Tensor]] = [None] * n_layers
     dx = None
-    dz = g * act_grad(acts[-1], zs[-1])
+    dz = g * grad(n_layers - 1)
     for l in range(n_layers - 1, -1, -1):
         dws[l] = hs[l].T @ dz
         dbs[l] = dz.sum(dim=0)
         if l > 0:
-            dz = (dz @ weights[l].T) * act_grad(acts[l - 1], zs[l - 1])
+            dz = (dz @ weights[l].T) * grad(l - 1)
         elif need_dx:
             dx = dz @ weights[0].T
     return dws, dbs, dx
@@ -152,7 +184,7 @@ def _library() -> ctypes.CDLL:
     if lib.fused_mlp_forward.argtypes is None:
         p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
         lib.fused_mlp_forward.argtypes = [p, p, i64, i32, p, p, p, p, p, p]
-        lib.fused_mlp_backward.argtypes = [p, p, p, p, p, i64, i64, i32, p, p, p, p, p, p, p, p]
+        lib.fused_mlp_backward.argtypes = [p, p, p, p, p, p, i64, i64, i32, p, p, p, p, p, p, p, p]
         for fn in (lib.fused_mlp_forward, lib.fused_mlp_backward):
             fn.restype = ctypes.c_int
         lib.fused_mlp_error_string.argtypes = [ctypes.c_int]
@@ -204,11 +236,23 @@ def _raise_on(lib: ctypes.CDLL, fn_name: str, err: int) -> None:
 
 def _rows_per_slice(batch: int, dims: Sequence[int]) -> int:
     """Rows one weight-gradient block sums: enough slices of the batch that
-    the blocks fill the card, none of fewer than 256 rows, a multiple of 32."""
-    tiles = sum(-(-k // _CHUNK_K) * -(-n // 128) for k, n in zip(dims[:-1], dims[1:]))
+    the blocks (one per 128 x 128 tile of a dW and slice) fill the card,
+    none of fewer than 256 rows, a multiple of 32."""
+    tiles = sum(-(-k // _GRAD_TILE) * -(-n // _GRAD_TILE) for k, n in zip(dims[:-1], dims[1:]))
     slices = max(1, min(-(-_GRAD_BLOCKS // tiles), batch // _MIN_SLICE_ROWS))
     rows = -(-batch // slices)
-    return -(-rows // _CHUNK_K) * _CHUNK_K
+    return -(-rows // _GRAD_ROWS) * _GRAD_ROWS
+
+
+def scratch_shape(batch: int, dims: Sequence[int]) -> Tuple[int, int, int]:
+    """(rows, width, hidden width) of the backward's scratch: act'(z_l) and
+    dz_l of every layer (width), h_{l+1} = act(z_l) of every layer but the
+    last (hidden width). Rows: the batch rounded up to the largest row tile;
+    every layer's width rounded up to 4 floats, so that each layer's block
+    of a row starts on 16 bytes."""
+    rows = -(-batch // _BWD_MAX_TILE_ROWS) * _BWD_MAX_TILE_ROWS
+    padded = [-(-n // 4) * 4 for n in dims[1:]]
+    return rows, sum(padded), sum(padded[:-1])
 
 
 def _forward_kernel(weights, biases, x, acts) -> torch.Tensor:
@@ -233,14 +277,15 @@ def _backward_kernel(weights, biases, x, g, acts, need_dx):
     dws = [torch.zeros_like(w) for w in weights]
     dbs = [torch.zeros_like(b) for b in biases]
     dx = torch.empty((n, dims[0]), dtype=torch.float32, device=x.device) if need_dx else None
-    rows = -(-n // _TILE_ROWS) * _TILE_ROWS
-    zs = torch.empty((rows, sum(dims[1:])), dtype=torch.float32, device=x.device)
-    dzs = torch.empty_like(zs)
+    rows, width, hidden = scratch_shape(n, dims)
+    dact, dzs = (torch.empty((rows, width), dtype=torch.float32, device=x.device) for _ in range(2))
+    hact = torch.empty((rows, hidden), dtype=torch.float32, device=x.device)
     lib = _library()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.fused_mlp_backward(
-            x.data_ptr(), g.data_ptr(), dx.data_ptr() if need_dx else None, zs.data_ptr(), dzs.data_ptr(),
+            x.data_ptr(), g.data_ptr(), dx.data_ptr() if need_dx else None, dact.data_ptr(), hact.data_ptr(),
+            dzs.data_ptr(),
             n, _rows_per_slice(max(n, 1), dims), len(weights),
             *_layer_arrays(dims, acts, weights, biases),
             (ctypes.c_void_p * len(dws))(*(t.data_ptr() for t in dws)),

@@ -16,7 +16,7 @@ entry of :data:`LAUNCHES` per kernel launch, and nowhere else.
 from __future__ import annotations
 
 import ctypes
-from typing import List, Optional, Sequence
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -31,6 +31,9 @@ __all__ = [
     "hash_encode_table_grad",
     "hash_encode_reference",
     "hash_encode_table_grad_reference",
+    "TableGradPlan",
+    "table_grad_plan",
+    "plan_words",
     "HashEncode",
     "coarse_onehot_levels",
     "coarse_constants",
@@ -52,9 +55,23 @@ _MAX_SHARED_BYTES = 232448  # Hopper's opt-in shared memory per block
 # fp32 sums taken in another order: |error| <= ATOMIC_SUM_C * 2^-24 * sum|terms|
 # (see atomic_sum_bound)
 ATOMIC_SUM_C = 8.0
+# The table gradient's plan (table_grad_plan). A level is privatised when its
+# rows take at least PRIVATE_MIN_UPDATES updates each on average: about the
+# private kernel's blocks (two per SM on 132 SMs), so that its flush, one
+# global atomic per (row, feature) and block, adds no more than it removes.
+# Its rows must fit PRIVATE_MAX_BYTES, half a block's opt-in shared memory,
+# so that two blocks share an SM.
+PRIVATE_MIN_UPDATES = 256
+PRIVATE_MAX_BYTES = _MAX_SHARED_BYTES // 2
+# two blocks of 256 threads on each of an H100's 132 SMs: the global levels'
+# corners are split into groups until the grid holds at least this many
+# threads, the fewest groups that give every SM work (each group recomputes
+# its point's cell and weights)
+MIN_GRID_THREADS = 2 * 132 * 256
 
 _SIGNATURE = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
               ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+_PLAN_SIGNATURE = _SIGNATURE[:-1] + [ctypes.c_void_p, ctypes.c_void_p]  # ..., level_consts, plan, stream
 
 
 def reset_launches() -> None:
@@ -69,6 +86,7 @@ def _library() -> ctypes.CDLL:
                    lib.hash_encode_coarse_forward, lib.hash_encode_coarse_table_grad):
             fn.argtypes = _SIGNATURE
             fn.restype = ctypes.c_int
+        lib.hash_encode_table_grad.argtypes = _PLAN_SIGNATURE
         lib.hash_encode_error_string.argtypes = [ctypes.c_int]
         lib.hash_encode_error_string.restype = ctypes.c_char_p
     return lib
@@ -108,6 +126,49 @@ def _scatter_terms(enc: HashGridEncoding, x: torch.Tensor, g: torch.Tensor, leve
 
 
 # ---------------------------------------------------------------------------
+# the table gradient's per-level plan (kernel 2)
+
+
+class TableGradPlan(NamedTuple):
+    """Which levels the table-gradient call privatises in shared memory and
+    which it adds with global atomics, and how it shapes each kernel."""
+
+    private_levels: Tuple[int, ...]  # level order; their rows packed in this order
+    global_levels: Tuple[int, ...]
+    corner_split: int  # threads per (point, global level), each 2^d / corner_split corners
+    shared_bytes: int  # the private kernel's accumulator (a group of levels at a time)
+
+
+def table_grad_plan(enc: HashGridEncoding, n: int) -> TableGradPlan:
+    """The plan of ``hash_encode_table_grad`` for ``n`` points: a level is
+    privatised when it is dense, its rows fit ``PRIVATE_MAX_BYTES`` and they
+    take at least ``PRIVATE_MIN_UPDATES`` updates each on average
+    (n * 2^d / rows); every other level is global, its corners split until
+    the grid holds ``MIN_GRID_THREADS`` threads."""
+    corners, F = 1 << enc.input_dim, enc.n_features_per_level
+    sizes = [int(s) for s in enc.level_sizes]
+    private = tuple(l for l in range(enc.n_levels)
+                    if enc.level_dense[l] and 4 * F * sizes[l] <= PRIVATE_MAX_BYTES
+                    and n * corners >= PRIVATE_MIN_UPDATES * sizes[l])
+    global_ = tuple(l for l in range(enc.n_levels) if l not in private)
+    split = 1
+    while global_ and split < corners and n * len(global_) * split < MIN_GRID_THREADS:
+        split *= 2
+    shared = min(4 * F * sum(sizes[l] for l in private), PRIVATE_MAX_BYTES)
+    return TableGradPlan(private, global_, split, shared)
+
+
+def plan_words(enc: HashGridEncoding, plan: TableGradPlan) -> np.ndarray:
+    """The plan as the kernel reads it (int32): n_private, n_global,
+    corner_split, shared_bytes, the private levels, each one's first row in
+    the accumulator's packing, the global levels."""
+    packed = np.concatenate([[0], np.cumsum([int(enc.level_sizes[l]) for l in plan.private_levels])])[:-1]
+    words = [len(plan.private_levels), len(plan.global_levels), plan.corner_split, plan.shared_bytes,
+             *plan.private_levels, *packed.tolist(), *plan.global_levels]
+    return np.asarray(words, dtype=np.int32)
+
+
+# ---------------------------------------------------------------------------
 # kernel wrappers
 
 
@@ -117,16 +178,19 @@ def _check_geometry(enc: HashGridEncoding) -> None:
 
 
 def _launch(fn_name: str, a: torch.Tensor, b: torch.Tensor, out: torch.Tensor,
-            enc: HashGridEncoding, consts: Optional[np.ndarray] = None) -> None:
+            enc: HashGridEncoding, consts: Optional[np.ndarray] = None,
+            words: Optional[np.ndarray] = None) -> None:
     """Launch ``fn_name`` with the level constants ``consts`` (default: all
-    levels, ``enc.kernel_constants``)."""
+    levels, ``enc.kernel_constants``) and, for the table gradient, its plan
+    ``words``."""
     lib = _library()
     consts = enc.kernel_constants if consts is None else consts
+    extra = () if words is None else (words.ctypes.data,)
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = getattr(lib, fn_name)(a.data_ptr(), b.data_ptr(), out.data_ptr(), a.shape[0],
                                     enc.input_dim, enc.n_features_per_level, consts.shape[0],
-                                    consts.ctypes.data, stream)
+                                    consts.ctypes.data, *extra, stream)
     if err != 0:
         msg = lib.hash_encode_error_string(err).decode()
         raise RuntimeError(f"{fn_name} launch failed: {msg} (cudaError {err})")
@@ -151,7 +215,8 @@ def hash_encode_forward(enc: HashGridEncoding, table: torch.Tensor, x: torch.Ten
 
 def hash_encode_table_grad(enc: HashGridEncoding, x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     """dL/dtable (T, F) for upstream g (N, L*F). CUDA tensors launch the
-    atomic scatter kernel; CPU tensors take the plain version."""
+    table-gradient kernels after :func:`table_grad_plan` (one call, one
+    count); CPU tensors take the plain version."""
     if not (x.is_cuda or g.is_cuda):
         return hash_encode_table_grad_reference(enc, x, g)
     n = x.shape[0]
@@ -159,7 +224,7 @@ def hash_encode_table_grad(enc: HashGridEncoding, x: torch.Tensor, g: torch.Tens
     build.check_tensor("g", g, (n, enc.output_dim), g.device)
     _check_geometry(enc)
     dtable = torch.zeros((enc.total_size, enc.n_features_per_level), dtype=torch.float32, device=g.device)
-    _launch("hash_encode_table_grad", x, g, dtable, enc)
+    _launch("hash_encode_table_grad", x, g, dtable, enc, words=plan_words(enc, table_grad_plan(enc, n)))
     return dtable
 
 

@@ -207,3 +207,28 @@ def test_stack_limits():
     assert fm._rows_per_slice(100, [3, 8, 1]) == 128  # one slice
     assert fm.siren_acts(2, 25.0, 50.0) == (("sine", 50.0), ("sine", 25.0), ("id",))
     assert fm.mlp_acts(2, "relu") == (("relu",), ("relu",), ("id",))
+
+
+def test_masked_reference_at_its_own_masks_is_the_plain_version():
+    """The relu yardstick of the card checks (``mlp_backward_reference_masked``
+    with ``relu_masks``) is the plain backward when the masks come from the
+    same forward: on the CPU both are the plain version."""
+    ws, bs, x, g, acts = _stack("relu")
+    ws, bs, x, g = _torch(ws), _torch(bs), torch.from_numpy(x), torch.from_numpy(g)
+    masks = fm.relu_masks(ws, bs, x, acts)
+    assert sorted(masks) == [l for l, a in enumerate(acts) if a[0] == "relu"] and masks
+    got = fm.mlp_backward_reference_masked(ws, bs, x, g, acts, True, masks)
+    want = fm.mlp_backward_reference(ws, bs, x, g, acts, True)
+    for a, b in zip(got[0] + got[1] + [got[2]], want[0] + want[1] + [want[2]]):
+        assert torch.equal(a, b)
+    flipped = {l: ~m for l, m in masks.items()}  # another mask changes the answer
+    assert not torch.equal(fm.mlp_backward_reference_masked(ws, bs, x, g, acts, True, flipped)[0][0], want[0][0])
+
+
+def test_backward_scratch_shape():
+    """The backward's scratch: rows padded to its 64-row tiles; act'(z) and dz
+    of every layer, h of every layer but the last, each layer's block
+    rounded up to 4 floats (16 bytes)."""
+    assert fm.scratch_shape(4097, [3, 128, 128, 1]) == (4160, 128 + 128 + 4, 256)
+    assert fm.scratch_shape(64, [20, 64, 1]) == (64, 68, 64)
+    assert fm.scratch_shape(1, [5, 7]) == (64, 8, 0)

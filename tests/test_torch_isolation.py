@@ -18,6 +18,7 @@ import mri_interpolation_tpu_torch as port
 from mri_interpolation_tpu_torch import device as port_device
 from mri_interpolation_tpu_torch import bench_kernels, launcher
 from mri_interpolation_tpu_torch.configs import RunConfig
+from mri_interpolation_tpu_torch.encodings import HashGridEncoding
 from mri_interpolation_tpu_torch.infer import evaluate_grid
 from mri_interpolation_tpu_torch.metrics import evaluate_reconstruction
 from mri_interpolation_tpu_torch.models import make_hash_mlp, make_multi_hash_mlp, make_multi_siren, make_siren
@@ -152,6 +153,21 @@ def test_kernel_paths_raise_instead_of_falling_back(monkeypatch):
                          ("hash_encode_coarse_table_grad", g, torch.zeros(table.shape))):
         with pytest.raises(RuntimeError, match="nvcc not found"):
             he._launch(name, x, b, out, enc, he.coarse_constants(enc, levels))
+    assert set(he.LAUNCHES.values()) == {0}
+
+
+def test_table_grad_kernel_path_raises_instead_of_falling_back(monkeypatch):
+    """The table gradient's kernel side, plan and all, builds its library or
+    raises: with nothing built and no nvcc it never takes the plain version."""
+    monkeypatch.setattr(build, "_loaded", {})
+    monkeypatch.setattr(build, "find_nvcc", lambda: None)
+    enc = HashGridEncoding(dim=2, n_levels=10, n_features_per_level=2, log2_hashmap_size=17, base_resolution=16,
+                           finest_resolution=None, per_level_scale=1.4)
+    words = he.plan_words(enc, he.table_grad_plan(enc, 123_904))
+    he.reset_launches()
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        he._launch("hash_encode_table_grad", torch.zeros((5, 2)), torch.zeros((5, 20)),
+                   torch.zeros((enc.total_size, 2)), enc, words=words)
     assert set(he.LAUNCHES.values()) == {0}
 
 

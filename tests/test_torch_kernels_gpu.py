@@ -1,5 +1,6 @@
-"""The CUDA kernels (hash encode of all levels and of the coarse levels,
-fused MLP, probe) against their plain PyTorch versions, on the card. Every test here carries the ``gpu`` marker and
+"""The CUDA kernels (hash encode of all levels and of the coarse levels, the
+table gradient's private and global levels, fused MLP, probe) against their
+plain PyTorch versions, on the card. Every test here carries the ``gpu`` marker and
 skips without a CUDA device: a CUDA kernel has no CPU mode. The file imports no JAX (the card's
 machine has none), so it runs there on its own:
 
@@ -51,6 +52,9 @@ CONFIGS = {
 
 
 ZERO = {name: 0 for name in he.LAUNCHES}
+# the multi-frame HashMLP's encoder (scripts/experiments.py:238-243): 10 dense levels x F = 2
+COARSE_MULTI_FRAME = dict(dim=2, n_levels=10, n_features_per_level=2, log2_hashmap_size=17, base_resolution=16,
+                          finest_resolution=None, per_level_scale=1.4)
 
 
 @pytest.fixture
@@ -152,6 +156,56 @@ def test_model_gradients_on_card_match_cpu(cuda_device):
     for key, want in grads["cpu"].items():
         np.testing.assert_allclose(grads[str(cuda_device)][key].numpy(), want.numpy(), rtol=0, atol=1e-5,
                                    err_msg=key)
+
+
+# ---------------------------------------------------------------------------
+# kernel 2's plan on the card: privatised levels (shared-memory accumulator)
+# and global levels (vector atomics) in one call
+
+
+@pytest.mark.gpu
+def test_table_grad_on_a_raster_order_frame(cuda_device):
+    """One whole 352 x 352 frame in raster order, as fit_frames sends it, on
+    all ten multi-frame levels: levels 0-3 privatised, 4-9 global with
+    float2 atomics; neighbouring threads share corners."""
+    cfg = COARSE_MULTI_FRAME
+    enc = HashGridEncoding(**cfg)
+    xs = np.linspace(0, 1, 352, dtype=np.float32)
+    gx, gy = np.meshgrid(xs, xs, indexing="ij")
+    x = torch.from_numpy(np.stack([gx.reshape(-1), gy.reshape(-1)], axis=-1)).to(cuda_device)
+    g = torch.from_numpy(np.random.default_rng(6).standard_normal((x.shape[0], enc.output_dim))
+                         .astype(np.float32)).to(cuda_device)
+    plan = he.table_grad_plan(enc, x.shape[0])
+    assert plan.private_levels == (0, 1, 2, 3) and plan.global_levels == (4, 5, 6, 7, 8, 9)
+    he.reset_launches()
+    dt = he.hash_encode_table_grad(enc, x, g)
+    torch.cuda.synchronize()
+    assert he.LAUNCHES == {**ZERO, "hash_encode_table_grad": 1}
+    _assert_within_atomic_bound(dt, he.hash_encode_table_grad_reference(enc, x, g), he.table_grad_abs_sum(enc, x, g))
+
+
+MIXED_F = [1, 2, 4, 8]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("f", MIXED_F)
+@pytest.mark.parametrize("lo", [0.0, -1.0])
+def test_table_grad_private_and_global_levels_mixed(f, lo, cuda_device):
+    """Levels of 81 and 169 rows privatised at N = 20,000, three dense and one
+    hashed level global; F = 1, 2, 4, 8 (scalar, float2 and float4 atomics);
+    x in [0, 1] and in [-1, 1]."""
+    cfg = dict(dim=2, n_levels=6, n_features_per_level=f, log2_hashmap_size=11, base_resolution=8,
+               finest_resolution=None, per_level_scale=1.5)
+    enc, x, _, g = _inputs(cfg, 20_000, cuda_device)
+    x = x * (1 - lo) + lo
+    plan = he.table_grad_plan(enc, x.shape[0])
+    assert plan.private_levels == (0, 1) and plan.global_levels == (2, 3, 4, 5)
+    assert not enc.level_dense[5]
+    he.reset_launches()
+    dt = he.hash_encode_table_grad(enc, x, g)
+    torch.cuda.synchronize()
+    assert he.LAUNCHES == {**ZERO, "hash_encode_table_grad": 1}
+    _assert_within_atomic_bound(dt, he.hash_encode_table_grad_reference(enc, x, g), he.table_grad_abs_sum(enc, x, g))
 
 
 # ---------------------------------------------------------------------------
@@ -275,7 +329,10 @@ STACKS = {
 
 
 def _stack(name, device):
-    widths, acts, batch = STACKS[name]
+    return _make_stack(*STACKS[name], device)
+
+
+def _make_stack(widths, acts, batch, device):
     rng = np.random.default_rng(1)
     ws, bs = [], []
     for k, n in zip(widths[:-1], widths[1:]):
@@ -321,6 +378,42 @@ def test_fused_mlp_matches_plain_versions(name, cuda_device, full_fp32):
     assert dx.is_contiguous() and _share(dx, rdx) <= tol
     _, _, none = fm.mlp_backward(ws, bs, x, g, acts, need_dx=False)
     assert none is None
+
+
+# the backward (3xTF32 on the tensor cores) at the main paths' shapes: 64-row
+# tiles from 16,896 rows on, 32-row tiles below; a ragged batch of each. The
+# yardstick takes relu's derivative from the forward kernel's own z
+# (fm.relu_masks), which the backward repeats bit for bit: at 10^5-10^6
+# pre-activations some lie within rounding of 0, where the plain version's
+# order of additions may give the other sign and a whole term of dW differs.
+MAIN_STACKS = {
+    "multi_siren_encoder": ([2] + [128] * 5, fm.siren_acts(4, 30.0, 30.0), 123_904),
+    "multi_siren_decoder": ([128] * 5 + [1], fm.siren_acts(4, 30.0, 30.0), 123_904),
+    "multi_hash_decoder": ([20, 64, 1], fm.mlp_acts(1, "relu"), 123_904),
+    "path_a": ([3] + [128] * 6 + [1], fm.siren_acts(6, 30.0, 30.0), 4096),
+    "path_a_ragged_64": ([3] + [128] * 6 + [1], fm.siren_acts(6, 30.0, 30.0), 20_001),
+    "path_b_ragged_32": ([32, 128, 1], fm.mlp_acts(1, "relu"), 9_999),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("need_dx", [False, True])
+@pytest.mark.parametrize("name", sorted(MAIN_STACKS))
+def test_fused_backward_at_main_path_shapes(name, need_dx, cuda_device, full_fp32):
+    ws, bs, x, g, acts = _make_stack(*MAIN_STACKS[name], cuda_device)
+    tol = 1e-4 if any(a[0] == "sine" for a in acts) else 1e-5
+    fm.reset_launches()
+    dws, dbs, dx = fm.mlp_backward(ws, bs, x, g, acts, need_dx=need_dx)
+    torch.cuda.synchronize()
+    assert fm.LAUNCHES == {"fused_mlp_forward": 0, "fused_mlp_backward": 1}
+    rdws, rdbs, rdx = fm.mlp_backward_reference_masked(ws, bs, x, g, acts, need_dx, fm.relu_masks(ws, bs, x, acts))
+    for l in range(len(ws)):
+        assert _share(dws[l], rdws[l]) <= tol, f"dW[{l}]"
+        assert _share(dbs[l], rdbs[l]) <= tol, f"db[{l}]"
+    if need_dx:
+        assert dx.is_contiguous() and _share(dx, rdx) <= tol
+    else:
+        assert dx is None
 
 
 @pytest.mark.gpu
