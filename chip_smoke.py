@@ -13,14 +13,22 @@ Phases, each printed with its time as it ends:
    exactly to ``2 * x`` and timed against ``torch.mul`` as medians of 200
    launches each;
 3. kernels: each kernel against its plain PyTorch version on the card, at the
-   main paths' shapes (and, for the hash kernels, a hashed geometry; for the
-   fused MLP, the ``siren 352x5`` shape, a small gelu stack and the
-   multi-frame models' three stacks at one frame; for the coarse-level pair,
-   the kernel bench's geometry, the JAX tests' geometry and the multi-frame
-   HashMLP's levels 0-3 at one 352 x 352 frame, with kernels 1 and 2 beside
-   them on the same levels, on the whole multi-frame encoder and on it in
-   raster order), with times, bounds (for kernels 5-6 also the 3xTF32
-   tensor-core bound) and ``index_add_``'s time beside kernels 2 and 4;
+   main paths' shapes (and, for the hash kernels, a hashed geometry at a
+   training batch and at path B's grid chunk; for the fused MLP, path B's
+   grid chunk, the ``siren 352x5`` shape (route 1 with two activation
+   buffers), a small gelu stack, the widest stack the kernels take (``relu
+   8-832-3``: route 2 throughout, 32-row blocks, a dot product for N = 3)
+   and the multi-frame models' three stacks at one frame; for the
+   coarse-level pair, the kernel bench's geometry, the JAX tests' geometry
+   and the multi-frame HashMLP's levels 0-3 at one 352 x 352 frame, with
+   kernels 1 and 2 beside them on the same levels, on the whole multi-frame
+   encoder and on it in raster order; and what one
+   multi-frame grid frame launches: kernel 1 at the frame's coordinates,
+   kernel 5 on the three stacks at their grid inputs), with times (the
+   profiler's device time, or CUDA events over a CUDA graph where it records
+   none; kernel 5's forward rows hold its split prologue and its forward
+   kernel), bounds (for kernels 5-6 also the 3xTF32 tensor-core bound) and
+   ``index_add_``'s time beside kernels 2 and 4;
 4. small fit: ``Trainer.fit`` on the card against the same fit on the CPU, for
    the flagship HashMLP, a small SIREN and a small ``relu_plain`` HashMLP
    with ``adam_tcnn``; ``Trainer.fit_frames`` likewise for a small
@@ -188,21 +196,54 @@ def bound_ms(nbytes: float, flops: float):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def graph_ms(fn, iters: int = 20) -> float:
+    """Device milliseconds per call of ``fn`` by CUDA events around one
+    replay of a CUDA graph of ``iters`` back-to-back calls: the kernels'
+    time without the host's cost of launching them."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
 def kernel_times(call, name: str, per_call: bool = False) -> dict:
-    """The kernel's device time per launch (profiler; the back-to-back
-    per-call time by events where the profiler records none) and the
-    per-call time of its wrapper. ``per_call``: the device time of all the
-    kernels whose name holds ``name`` per call of ``call`` (a wrapper that
-    launches several)."""
+    """The kernel's device time per launch (profiler) and the per-call time
+    of its wrapper. ``per_call``: the device time of all the kernels whose
+    name holds ``name`` per call of ``call`` (a wrapper that launches
+    several), with each one's share under ``parts``. Where the profiler
+    records no device time, the kernels alone by CUDA events over a CUDA
+    graph of 20 back-to-back calls (``ms_source`` "graph events"); a call
+    that the graph cannot capture fails the run."""
     call_ms = time_ms(call)
+    parts = {}
     if per_call:
         kernels, _ = profile_device(call, 20)
-        hits = [ms for key, (ms, _) in kernels.items() if name in key]
-        ms = sum(hits) / 20 if hits else None
+        parts = {key: ms / 20 for key, (ms, _) in kernels.items() if name in key}
+        ms = sum(parts.values()) if parts else None
     else:
         ms = kernel_ms(call, name)
-    return {"ms": call_ms if ms is None else ms, "ms_source": "events" if ms is None else "profiler",
-            "call_ms": call_ms}
+    source = "profiler"
+    if ms is None:
+        ms, source = graph_ms(call), "graph events"
+    out = {"ms": ms, "ms_source": source, "call_ms": call_ms}
+    if parts:
+        out["parts"] = parts
+    return out
 
 
 def launch_stats(fn, name: str, launches: int = 200) -> dict:
@@ -259,6 +300,7 @@ def check_kernels(torch, he, enc_flagship, enc_hashed, dev):
         ("flagship", enc_flagship,
          flat_index_to_coords(torch.arange(352 * 352 * 30, device=dev), (352, 352, 30)), "whole 352x352x30 grid"),
         ("hashed16", enc_hashed, points(10_000, 3), "train batch"),
+        ("hashed16", enc_hashed, points(1 << 17, 3), "grid chunk"),  # path B's grid
     ]
     for geom, enc, x, what in cases:
         n, d, L, F = x.shape[0], enc.input_dim, enc.n_levels, enc.n_features_per_level
@@ -506,6 +548,7 @@ def check_fused_mlp(torch, fm, dev):
     from mri_interpolation_tpu_torch.models import make_hash_mlp, make_multi_hash_mlp, make_multi_siren, make_siren
 
     gen = torch.Generator(device="cpu").manual_seed(1)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     multi_siren = make_multi_siren(**{**MULTI_SIREN, "n_frames": 1}, device=dev)
     multi_hash = make_multi_hash_mlp(**{**MULTI_HASH, "n_frames": 1}, device=dev)
     siren_a = make_siren(3, dim_hidden=128, n_layers=6, device=dev).params
@@ -514,6 +557,8 @@ def check_fused_mlp(torch, fm, dev):
                          per_level_scale=1.4, dim_hidden=128, n_layers=2, decoder="relu_plain", device=dev)
     gelu_layers = [{"w": (torch.rand((k, n), generator=gen) - 0.5).to(dev) / 4,
                     "b": (torch.rand((n,), generator=gen) - 0.5).to(dev) / 4} for k, n in ((16, 64), (64, 64), (64, 2))]
+    wide_layers = [{"w": (torch.rand((k, n), generator=gen) - 0.5).to(dev) / math.sqrt(k),
+                    "b": (torch.rand((n,), generator=gen) - 0.5).to(dev) / math.sqrt(k)} for k, n in ((8, 832), (832, 3))]
 
     def siren_stack(params, n_layers):
         layers = params["layers"] + [params["last"]]
@@ -527,7 +572,10 @@ def check_fused_mlp(torch, fm, dev):
         ("A grid chunk", *siren_stack(siren_a, 6), 1 << 17, -1.0, False, False),
         ("B train step", [l.params for l in tcnn.layers], fm.mlp_acts(1, "relu"), 10_000, -0.5, True, True),
         ("siren 352x5", *siren_stack(siren_352, 5), 20_000, -1.0, True, False),
+        ("B grid chunk", [l.params for l in tcnn.layers], fm.mlp_acts(1, "relu"), 1 << 17, -0.5, False, False),
         ("gelu small", gelu_layers, fm.mlp_acts(2, "gelu"), 1000, -1.0, True, True),
+        # the widest stack the kernels take: route 2 throughout, 32-row blocks, a dot product for N = 3
+        ("relu 8-832-3", wide_layers, fm.mlp_acts(1, "relu"), 4099, -1.0, False, False),
         # the multi-frame paths' stacks at one 352 x 352 frame
         ("multi_siren enc", *siren_stack(multi_siren.encoders.params(0), 4), FRAME[0] * FRAME[1], -1.0, True, False),
         ("multi_siren dec", *siren_stack(multi_siren.decoder.params(), 4), FRAME[0] * FRAME[1], -1.0, True, True),
@@ -550,13 +598,16 @@ def check_fused_mlp(torch, fm, dev):
             fb, fk = bound_ms(*mlp_work(dims, n, False, False))
             call = lambda: fm.mlp_forward(ws, bs, x, acts)  # noqa: E731
             row = {"what": what, "dims": dims, "n": n, "max_abs_err": err, "tolerance_share": share,
-                   **kernel_times(call, "fused_mlp_forward_kernel"),
+                   "plan": fm.forward_plan(dims, acts, n, sms)._asdict(),
+                   # the split prologue (route-1 layers) and the forward kernel of one call
+                   **kernel_times(call, "fused_mlp_", per_call=True),
                    "plain_ms": time_ms(lambda: fm.mlp_forward_reference(ws, bs, x, acts), iters=5),
                    "bound_ms": fb, "bound_by": fk, "bound_tc_ms": tensor_core_bound_ms(dims, n, False, False),
                    "library_ms": None}
             rows["fused_mlp_forward"].append(row)
-            log(f"  mlp forward  {what:15s} dims {dims[0]}-{dims[1]}x{len(dims) - 2}-{dims[-1]} N={n:>7,d}: "
-                f"err {err:.3e}  kernel {row['ms']} ms  per call {row['call_ms']:.4f} ms  "
+            log(f"  mlp forward  {what:15s} dims {dims[0]}-{dims[1]}x{len(dims) - 2}-{dims[-1]} N={n:>7,d} "
+                f"routes {row['plan']['routes']} rows {row['plan']['rows']}: "
+                f"err {err:.3e}  kernel {row['ms']} ms ({row['ms_source']})  per call {row['call_ms']:.4f} ms  "
                 f"plain {row['plain_ms']:.4f} ms  bound {fb:.5f} ms ({fk}), 3xTF32 {row['bound_tc_ms']:.5f} ms")
             if not backward:
                 continue
@@ -595,6 +646,80 @@ def check_fused_mlp(torch, fm, dev):
             log(f"  mlp backward {what:15s} N={n:>7,d} dx={need_dx!s:5s}: err {err:.3e}  kernel {row['ms']} ms  "
                 f"per call {row['call_ms']:.4f} ms  plain {row['plain_ms']:.4f} ms  bound {gb:.5f} ms ({gk}), "
                 f"3xTF32 {row['bound_tc_ms']:.5f} ms")
+    return rows
+
+
+def check_grid_frames(torch, he, fm, dev):
+    """What ``evaluate_grid(model, (352, 352), frame_idx=t)`` launches for
+    one frame of the multi-frame paths, forward only, against the plain
+    versions: kernel 1 on the multi-frame encoder (a table drawn U(-1, 1)) at
+    the frame's coordinates, kernel 5 on multi_hash's decoder at that
+    encoding, and kernel 5 on multi_siren's encoder at the frame's
+    coordinates in [-1, 1] and on its decoder at the encoder's output.
+    Returns per-kernel rows."""
+    from mri_interpolation_tpu_torch.infer import flat_index_to_coords
+    from mri_interpolation_tpu_torch.models import make_multi_hash_mlp, make_multi_siren
+
+    gen = torch.Generator(device="cpu").manual_seed(7)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    n = FRAME[0] * FRAME[1]
+    flat = torch.arange(n, device=dev)
+    mh = make_multi_hash_mlp(**{**MULTI_HASH, "n_frames": 1}, device=dev)
+    msn = make_multi_siren(**{**MULTI_SIREN, "n_frames": 1}, device=dev)
+    enc = mh.geometry
+    table = (torch.rand((enc.total_size, enc.n_features_per_level), generator=gen) * 2 - 1).to(dev)
+    x01, x11 = flat_index_to_coords(flat, FRAME), flat_index_to_coords(flat, FRAME, -1.0, 1.0)
+    rows = {"hash_encode_forward": [], "fused_mlp_forward": []}
+    with torch.no_grad():
+        feats = he.hash_encode_forward(enc, table, x01)
+        ref = he.hash_encode_reference(enc, table, x01)
+        torch.cuda.synchronize()
+        err, tol = float((feats - ref).abs().max()), FWD_ATOL * max(1.0, float(ref.abs().max()))
+        if not math.isfinite(err) or err > tol:
+            fail(f"hash_encode_forward grid frame: max abs err {err} > {tol}")
+        ids, _ = enc.corner_ids_and_weights(x01)
+        d, L, F = enc.input_dim, enc.n_levels, enc.n_features_per_level
+        fb, fk = bound_ms(4.0 * (n * d + int(torch.unique(ids).numel()) * F + n * L * F),
+                          n * L * flops_per_point_level(d, F, grad=False))
+        row = {"geometry": "multi_frame", "n": n, "what": "grid frame (evaluate_grid)", "max_abs_err": err,
+               "tolerance": tol, **kernel_times(lambda: he.hash_encode_forward(enc, table, x01),
+                                                "hash_encode_forward_kernel"),
+               "plain_ms": time_ms(lambda: he.hash_encode_reference(enc, table, x01), iters=5),
+               "bound_ms": fb, "bound_by": fk, "library_ms": None}
+        rows["hash_encode_forward"].append(row)
+        log(f"  forward    multi_frame N={n:>7,d} (grid frame): err {err:.3e}  kernel {row['ms']} ms "
+            f"({row['ms_source']})  plain {row['plain_ms']:.4f} ms  bound {fb:.5f} ms ({fk})")
+
+        def siren(params):
+            layers = params["layers"] + [params["last"]]
+            return [l["w"] for l in layers], [l["b"] for l in layers], fm.siren_acts(4, 30.0, 30.0)
+
+        enc_ws, enc_bs, sacts = siren(msn.encoders.params(0))
+        dec_ws, dec_bs, _ = siren(msn.decoder.params())
+        z = fm.mlp_forward(enc_ws, enc_bs, x11, sacts)
+        stacks = [("multi_hash dec grid frame", [l.params["w"] for l in mh.decoder], [l.params["b"] for l in mh.decoder],
+                   fm.mlp_acts(1, "relu"), feats, MLP_SHARE),
+                  ("multi_siren enc grid frame", enc_ws, enc_bs, sacts, x11, MLP_SINE_SHARE),
+                  ("multi_siren dec grid frame", dec_ws, dec_bs, sacts, z, MLP_SINE_SHARE)]
+        for what, ws, bs, acts, x, share in stacks:
+            dims = [ws[0].shape[0]] + [w.shape[1] for w in ws]
+            y = fm.mlp_forward(ws, bs, x, acts)
+            ref = fm.mlp_forward_reference(ws, bs, x, acts)
+            torch.cuda.synchronize()
+            err = float((y - ref).abs().max())
+            if not math.isfinite(err) or err > share * float(ref.abs().max()):
+                fail(f"fused_mlp_forward {what}: max abs err {err} > {share} x {float(ref.abs().max())}")
+            fb, fk = bound_ms(*mlp_work(dims, n, False, False))
+            row = {"what": what, "dims": dims, "n": n, "max_abs_err": err, "tolerance_share": share,
+                   "plan": fm.forward_plan(dims, acts, n, sms)._asdict(),
+                   **kernel_times(lambda: fm.mlp_forward(ws, bs, x, acts), "fused_mlp_", per_call=True),
+                   "plain_ms": time_ms(lambda: fm.mlp_forward_reference(ws, bs, x, acts), iters=5),
+                   "bound_ms": fb, "bound_by": fk, "bound_tc_ms": tensor_core_bound_ms(dims, n, False, False),
+                   "library_ms": None}
+            rows["fused_mlp_forward"].append(row)
+            log(f"  mlp forward  {what:26s} N={n:>7,d} routes {row['plan']['routes']}: err {err:.3e}  "
+                f"kernel {row['ms']} ms ({row['ms_source']})  plain {row['plain_ms']:.4f} ms  "
+                f"bound {fb:.5f} ms ({fk}), 3xTF32 {row['bound_tc_ms']:.5f} ms")
     return rows
 
 
@@ -862,7 +987,7 @@ def cli(launcher, argv):
 def profile_main_paths(torch) -> None:
     """Print device time by kernel over 20 training steps of each path (per
     step; one epoch of 15 frames for the multi-frame models), one
-    (352, 352, 30) grid evaluation of the flagship and of path A, and the 15
+    (352, 352, 30) grid evaluation of the flagship, path A and path B, and the 15
     (352, 352) frame grids of the multi-frame HashMLP (per frame), each under
     torch.profiler (which slows the host, so the busy shares are lower
     bounds)."""
@@ -888,6 +1013,7 @@ def profile_main_paths(torch) -> None:
         ("path B train_step", fit(tcnn, ds, TrainConfig(lr=1e-2, optimizer="adam_tcnn"), 200_000), 20),
         ("flagship grid_eval_352x352x30", lambda: evaluate_grid(flagship, GRID), 1),
         ("path A grid_eval_352x352x30", lambda: evaluate_grid(siren, GRID, lo=-1.0), 1),
+        ("path B grid_eval_352x352x30", lambda: evaluate_grid(tcnn, GRID), 1),
         ("multi_hash_mlp train_step", lambda: Trainer(TrainConfig(lr=5e-3)).fit_frames(
             multi_hash, frame_coords, frame_values), 15),
         ("multi_siren train_step", lambda: Trainer(TrainConfig(lr=1e-4)).fit_frames(
@@ -964,6 +1090,8 @@ def main() -> int:
     for name, krows in check_coarse_kernels(torch, he, dev).items():
         rows.setdefault(name, []).extend(krows)
     rows.update(check_fused_mlp(torch, fm, dev))
+    for name, krows in check_grid_frames(torch, he, fm, dev).items():
+        rows[name].extend(krows)
     rows["probe"] = [probe_row]
     log(f"[kernels] done in {time.perf_counter() - t0:.1f} s")
 

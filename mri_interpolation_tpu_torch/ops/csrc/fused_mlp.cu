@@ -1,8 +1,9 @@
-// Fused MLP stack on Hopper: forward (fp32 on the CUDA cores) and backward
-// (3xTF32 on the tensor cores).
+// Fused MLP stack on Hopper: forward and backward, 3xTF32 on the tensor
+// cores, relu layers' forward products in fp32 on the CUDA cores.
 //
 // Replaces two Pallas TPU kernels of mri_interpolation_tpu/ops/pallas/fused_mlp.py:
-//   fused_mlp_forward_kernel        <- _forward_kernel  (called by _forward_call)
+//   fused_mlp_split_weights_kernel  \
+//   fused_mlp_forward_kernel<C>     /  <- _forward_kernel  (called by _forward_call)
 //   fused_mlp_backward_tile_kernel  \
 //   fused_mlp_weight_grad_kernel    /  <- _backward_kernel (called by _backward_call)
 //
@@ -13,17 +14,40 @@
 // dW_l = h_l^T dz_l, db_l = sum_rows dz_l, dz_{l-1} = (dz_l W_l^T) * act'(z_{l-1}),
 // and, when asked for, dx = dz_0 W_0^T.
 //
-// Forward (kernel 5). A block owns a tile of kTileRows = 32 rows and walks
-// the whole stack for it. The tile's activations stay in shared memory, in
-// two buffers of 32 x ld floats used in turn (ld = the widest layer rounded
-// up to 32; at width 352 a buffer is 45 KB). The weights do not fit (330 KB
-// at SIREN 128 x 6, 496 KB per 352 x 352 layer), so each layer's W is
-// streamed through shared memory in chunks of 32 (K) x 128 (N). 256 threads
-// each keep a 4 x 4 block of the 32 x 128 output chunk in registers and
-// accumulate with fp32 FMAs on the CUDA cores (tile_gemm). sinf/cosf/tanhf
-// are the accurate library functions (no --use_fast_math) in both kernels:
-// a first SIREN layer's argument reaches ~40 rad, where the __sinf
-// intrinsic loses digits.
+// Forward (kernel 5). One block per tile of rows walks the whole stack; the
+// tile's activations stay in shared memory (row stride ld + 4, ld = the
+// widest layer rounded up to 32): one buffer that each layer writes over
+// when every width is <= 128, else two used in turn. Each layer takes one of
+// two routes, chosen before launch by ops/fused_mlp.py:forward_plan (block
+// shape, ring depth, route per layer; pack_forward derives the layout):
+//   1. sine, gelu and identity layers on the tensor cores in 3xTF32
+//      (mma.sync m16n8k8, kernel 6's split and order of terms). A prologue
+//      kernel (fused_mlp_split_weights_kernel) splits every W element once
+//      per call into TF32 hi/lo planes, stored in the order of the MMA's B
+//      fragments; chunks of 4 steps reach shared memory by cp.async through
+//      a ring of 2, 4 or 8. The 8 warps of a block take 16-row bands and 2
+//      or 4 column groups of each 128-column pass, so an activation is split
+//      at its fragment load by 2 or 4 warps, not by every column group of
+//      the tile; the epilogue of a layer of width <= 128 writes over its own
+//      input rows. The layer's bias is staged before the accumulators are
+//      read; a sine layer takes sin_reduced, 16 outputs at a time.
+//   2. relu layers on the CUDA cores in fp32, per output acc = 0,
+//      acc = fmaf(h_k, w_kn, acc) for k ascending, z = acc + b_n: the order
+//      of tile_gemm, which kernel 6 uses to recompute a relu layer, so that
+//      relu's 0/1 mask is bit for bit the same in both kernels. The chunk
+//      width follows N (32, 64 or 128 columns), the block's rows are one
+//      tile, a relu decoder's whole W is one staged chunk, and a layer of
+//      N <= 8 is a per-row dot product. Every layer of a stack too wide for
+//      route 1's shared memory goes here too.
+// Block shapes: 8 warps over 64 rows, or over 32 where 64-row blocks would
+// number fewer than the SMs; two blocks an SM. tanhf, and sinf past
+// sin_reduced's domain, are the accurate library functions (no
+// --use_fast_math) in both kernels: a first SIREN layer's argument reaches
+// ~40 rad, where the __sinf intrinsic loses digits. The MMAs are
+// mma.sync, not wgmma: TF32 wgmma takes K-major operands from shared memory
+// in a swizzled layout, and a 64-row tile's hi and lo activations beside a
+// double-buffered weight chunk leave little room at width 128; mma.sync
+// reads fragments in any layout the kernel chooses.
 //
 // Backward (kernel 6). The TPU backward sums dW over a sequential grid.
 // Blocks here run in no order, so the backward is two kernels:
@@ -52,7 +76,7 @@
 // the multi-frame SIREN's two stacks, the relu decoders with dx) to a
 // quarter of the tolerances that the card holds the kernel to; all passed.
 // One exception, fixed by activation: a relu layer's recomputed z_l (pass
-// 1's forward) stays on the CUDA cores, in kernel 5's tile_gemm and its
+// 1's forward) stays on the CUDA cores, in tile_gemm, kernel 5's route 2 and its
 // order of additions, so that z_l, and relu's 0/1 derivative, are bit for
 // bit what the forward computed. A 3xTF32 z_l lies ~2^-21 away from it and
 // flips the mask of the pre-activations that lie closer to 0 (on the card,
@@ -245,47 +269,6 @@ __device__ __forceinline__ void tile_gemm(const float* a, int lda, const float* 
       for (int j = 0; j < 4; ++j) epi(ty * 4 + i, n0 + tx * 4 + j, acc[i][j]);
   }
 }
-
-// Copy the tile's x rows into buf (zeros past the batch and past column K0).
-__device__ __forceinline__ void stage_x(float* buf, int ld, const float* __restrict__ x, int64_t row0,
-                                        int64_t batch, int k0) {
-  for (int e = threadIdx.x; e < kTileRows * ld; e += kThreads) {
-    const int r = e / ld, c = e % ld;
-    const int64_t row = row0 + r;
-    buf[e] = (row < batch && c < k0) ? x[row * k0 + c] : 0.f;
-  }
-}
-
-__global__ void __launch_bounds__(kThreads)
-fused_mlp_forward_kernel(const float* __restrict__ x, float* __restrict__ out, int64_t batch,
-                         const __grid_constant__ Net net) {
-  extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  const int ld = net.ld;
-  float* hin = smem;
-  float* hout = smem + kTileRows * ld;
-  float* bs = smem + 2 * kTileRows * ld;
-  const int64_t row0 = (int64_t)blockIdx.x * kTileRows;
-  stage_x(hin, ld, x, row0, batch, net.layer[0].k);
-  for (int l = 0; l < net.n_layers; ++l) {
-    const Layer& L = net.layer[l];
-    const bool last = l == net.n_layers - 1;
-    const int n = L.n, act = L.act;
-    const float w0 = L.w0;
-    const float* bias = L.b;
-    tile_gemm(hin, ld, L.w, n, 1, L.k, n, bs, [&](int r, int c, float acc) {
-      if (c < n) {
-        const float h = act_fwd(act, w0, acc + bias[c]);
-        if (!last) hout[r * ld + c] = h;
-        else if (row0 + r < batch) out[(row0 + r) * n + c] = h;
-      } else if (!last && c < ld) {
-        hout[r * ld + c] = 0.f;
-      }
-    });
-    float* t = hin; hin = hout; hout = t;
-  }
-}
-
 
 // ---------------------------------------------------------------------------
 // Kernel 6: the backward on the tensor cores (3xTF32), fed by cp.async.
@@ -498,6 +481,389 @@ __device__ __forceinline__ void mma_gemm(const float* a, int lda, const float* _
     }
   }
   __syncthreads();  // the next product restages bsm
+}
+
+// ---------------------------------------------------------------------------
+// Kernel 5: the forward, two routes chosen per layer before launch
+// (ops/fused_mlp.py:forward_plan, passed as plan words; pack_forward derives
+// the layout from them).
+
+constexpr int kRouteTC = 1;       // 3xTF32 mma.sync on the tensor cores
+constexpr int kRouteFP32 = 2;     // fp32 FMAs on the CUDA cores, in the order of tile_gemm
+constexpr int kFwdSteps = 4;      // MMA steps of 8 per staged weight chunk (32 deep)
+constexpr int kFwdMaxNB = 16;     // column blocks of 8 per route-1 pass: 128 columns
+constexpr int kFwdPass = 8 * kFwdMaxNB;
+constexpr int kFwdChunkK = 32;    // depth of a route-2 weight chunk
+constexpr int kFwdThreads = 256;  // 8 warps a block, two blocks an SM
+constexpr int kFwdConfigs = 2;    // block shapes: 64 or 32 rows (fwd_rows)
+constexpr float kSinReduced = 105615.f;  // sin_reduced's domain: |a| <= this
+
+// Block shape c: its 8 warps as fwd_warp_cols(c) warps along a route-1
+// pass's 128 columns by 8 / fwd_warp_cols(c) bands of 16 rows: 64 or 32
+// rows. (16 warps over 128 rows, with half the weight traffic, and 32 rows
+// a warp were slower on the card.)
+__host__ __device__ constexpr int fwd_warp_cols(int c) { return c == 0 ? 2 : 4; }
+__host__ __device__ constexpr int fwd_rows(int c) { return 16 * (8 / fwd_warp_cols(c)); }
+
+// sin(a) for |a| <= kSinReduced, as accurate as sinf there (within 1.5 ulp
+// of sin on the CPU emulation in tests/test_torch_fused_forward_plan.py):
+// a = j pi/2 + r with pi/2 in three fp32 parts (Cody-Waite), then the
+// minimax polynomials of sin and cos on |r| <= pi/4. It is sinf's own
+// reduction and polynomials without sinf's branch to its Payne-Hanek path,
+// so a group of these interleaves; the caller takes sinf past the domain.
+__device__ __forceinline__ float sin_reduced(float a) {
+  const float j = rintf(a * 6.36619772e-01f);  // 2 / pi
+  const int q = (int)j;
+  float r = fmaf(j, -1.57079601e+00f, a);
+  r = fmaf(j, -3.13916473e-07f, r);
+  r = fmaf(j, -5.39030253e-15f, r);
+  const float s = r * r;
+  float ps = 2.86567956e-6f;
+  ps = fmaf(ps, s, -1.98559923e-4f);
+  ps = fmaf(ps, s, 8.33338592e-3f);
+  ps = fmaf(ps, s, -1.66666672e-1f);
+  ps = fmaf(ps, r * s, r);
+  float pc = 2.44677067e-5f;
+  pc = fmaf(pc, s, -1.38877297e-3f);
+  pc = fmaf(pc, s, 4.16666567e-2f);
+  pc = fmaf(pc, s, -5.00000000e-1f);
+  pc = fmaf(pc, s, 1.00000000e+0f);
+  const float v = (q & 1) ? pc : ps;
+  return (q & 2) ? -v : v;
+}
+
+// v[i] = act(v[i]) over a group: a sine layer's group takes sin_reduced
+// where every argument of the group lies in its domain (all of them, on the
+// main paths), sinf otherwise.
+template <int V>
+__device__ __forceinline__ void act_group(int act, float w0, float (&v)[V]) {
+  if (act == kSine) {
+    bool reduced = true;
+#pragma unroll
+    for (int i = 0; i < V; ++i) {
+      v[i] = w0 * v[i];
+      reduced = reduced && fabsf(v[i]) <= kSinReduced;
+    }
+    if (reduced) {
+#pragma unroll
+      for (int i = 0; i < V; ++i) v[i] = sin_reduced(v[i]);
+    } else {
+#pragma unroll
+      for (int i = 0; i < V; ++i) v[i] = sinf(v[i]);
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < V; ++i) v[i] = act_fwd(act, w0, v[i]);
+  }
+}
+
+struct FwdLayer {
+  const float* w;    // (k, n) row-major
+  const float* b;    // (n,)
+  const uint4* ws;   // route 1: W split once into TF32 hi/lo, in MMA fragment order (split kernel)
+  int k, n, act;
+  float w0;
+  int route;
+  int chunk;         // route 1: column blocks of 8 per pass; route 2: columns per chunk (32, 64, 128; 0: n <= 8)
+};
+
+struct FwdNet {
+  FwdLayer layer[kMaxLayers];
+  int n_layers;
+  int ld;            // columns of an activation row that are ever read (the widest layer rounded up to 32)
+  int lda;           // row stride of the activation buffers: ld + 4 (= 4 mod 32: conflict-free A fragments)
+  int nbuf;          // 1: each layer writes over its input (every width <= 128); 2: two buffers in turn
+  int ring;          // route 1's staged weight chunks in flight (2, 4 or 8)
+  int wfloats;       // the weight region: route 1's ring or one route-2 chunk, the larger; two staged biases follow
+};
+
+// The split kernel's work: route-1 layer j of the forward.
+struct SplitJob {
+  const float* w;
+  uint4* ws;
+  int k, n, nb, k8, count;  // count = passes * k8 * nb * 32 fragment words
+};
+
+struct SplitJobs {
+  SplitJob job[kMaxLayers];
+  int n_jobs;
+};
+
+// W of every route-1 layer split once per call into hi = tf32(w), lo =
+// tf32(w - hi), stored as the B fragments of mma.sync m16n8k8: for pass p,
+// step s (depth 8s..8s+7), column block j (columns 128p + 8j ..) and lane
+// (g = lane / 4, t = lane % 4) one uint4 {hi(w[8s+t][c]), hi(w[8s+t+4][c]),
+// lo(w[8s+t][c]), lo(w[8s+t+4][c])}, c = 128p + 8j + g, zeros outside W.
+// A staged chunk of 4 steps is one contiguous run; a lane's fragment is one
+// 16-byte load.
+__global__ void __launch_bounds__(256)
+fused_mlp_split_weights_kernel(const __grid_constant__ SplitJobs jobs) {
+  for (int q = 0; q < jobs.n_jobs; ++q) {
+    const SplitJob& J = jobs.job[q];
+    for (int e = blockIdx.x * blockDim.x + threadIdx.x; e < J.count; e += gridDim.x * blockDim.x) {
+      const int lane = e % 32, j = (e / 32) % J.nb, s = (e / (32 * J.nb)) % J.k8, p = e / (32 * J.nb * J.k8);
+      const int c = kFwdPass * p + 8 * j + (lane >> 2), k = 8 * s + (lane & 3);
+      const float b0 = (k < J.k && c < J.n) ? J.w[(int64_t)k * J.n + c] : 0.f;
+      const float b1 = (k + 4 < J.k && c < J.n) ? J.w[(int64_t)(k + 4) * J.n + c] : 0.f;
+      uint32_t h0, l0, h1, l1;
+      split_tf32(b0, h0, l0);
+      split_tf32(b1, h1, l1);
+      J.ws[e] = make_uint4(h0, h1, l0, l1);
+    }
+  }
+}
+
+// Route 1: out = hin @ W on the tensor cores in 3xTF32. The block's 8 warps
+// take 16-row bands and WC column groups of a pass of 128 columns; W's split
+// chunks (4 steps x nb column blocks) reach shared memory through cp.async
+// into a ring of `ring` buffers, ring - 1 chunks ahead (up to a whole
+// 128-wide layer where a small batch leaves one block an SM). An activation
+// is split at its fragment load, once by each of the WC (2 or 4) warps of
+// its band. inplace: hin is also the output buffer (a
+// single pass, N <= 128), so the warps that read a row finish before its
+// outputs are written. Per output the order is kernel 6's (mma_gemm):
+// acc = 0, then for every step of 8, lo*hi', hi*lo', hi*hi'; z = acc + b.
+// The epilogue takes 4 column blocks at a time: their 16 activations
+// together (act_group), then their stores.
+template <int WC, int T, typename Store>
+__device__ __forceinline__ void fwd_tc_layer(const float* hin, int lda, const FwdLayer& L, float* wsm,
+                                             const float* bsm, bool inplace, int ring, Store store) {
+  constexpr int NT = kFwdMaxNB / WC;  // column blocks of a warp per pass, in groups of 4
+  static_assert(NT % 4 == 0, "route-1 column groups");
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane >> 2, t = lane & 3;
+  const int rb = (warp / WC) * 16, jb = (warp % WC) * NT;
+  const int nb = L.chunk, k8 = (L.k + 7) / 8, nkc = (k8 + kFwdSteps - 1) / kFwdSteps;
+  const int total = nkc * ((L.n + kFwdPass - 1) / kFwdPass);
+  const int stage_words = kFwdSteps * nb * 32;
+  const int live = nb - jb;  // this warp's column blocks inside the layer (warp-uniform)
+  uint4* wbuf = reinterpret_cast<uint4*>(wsm);
+  auto stage = [&](int s) {  // one commit group per chunk, empty past the last
+    if (s < total) {
+      const int p = s / nkc, kc = s % nkc, steps = min(kFwdSteps, k8 - kFwdSteps * kc);
+      const uint4* src = L.ws + ((int64_t)p * k8 + kFwdSteps * kc) * nb * 32;
+      uint4* dst = wbuf + (s % ring) * stage_words;
+      for (int e = threadIdx.x; e < steps * nb * 32; e += T)
+        cp_async16(reinterpret_cast<float*>(dst + e), reinterpret_cast<const float*>(src + e), 16);
+    }
+    cp_async_commit();
+  };
+  float acc[NT][4];
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) acc[j][q] = 0.f;
+  for (int q = 0; q + 1 < ring; ++q) stage(q);
+  for (int s = 0; s < total; ++s) {
+    switch (ring) {  // chunk s has landed: at most ring - 2 later groups pending
+      case 8: cp_async_wait<6>(); break;
+      case 4: cp_async_wait<2>(); break;
+      default: cp_async_wait<0>();
+    }
+    __syncthreads();  // ... for every thread, and every warp is done with chunk s - 1's buffer
+    stage(s + ring - 1);
+    const uint4* bs = wbuf + (s % ring) * stage_words;
+    const int p = s / nkc, kc = s % nkc, steps = min(kFwdSteps, k8 - kFwdSteps * kc);
+    if (live > 0) {
+#pragma unroll
+      for (int kk = 0; kk < kFwdSteps; ++kk) {
+        if (kk < steps) {
+          uint32_t ah[4], al[4];
+          load_a(hin + rb * lda + (kFwdSteps * kc + kk) * 8, lda, g, t, ah, al);
+#pragma unroll
+          for (int j0 = 0; j0 < NT; j0 += 4) {
+            if (j0 < live) {
+              uint32_t bh[4][2], bl[4][2];
+#pragma unroll
+              for (int jj = 0; jj < 4; ++jj) {
+                const uint4 v = j0 + jj < live ? bs[(kk * nb + jb + j0 + jj) * 32 + lane] : make_uint4(0, 0, 0, 0);
+                bh[jj][0] = v.x; bh[jj][1] = v.y; bl[jj][0] = v.z; bl[jj][1] = v.w;
+              }
+              // each term in one sweep over the group's accumulators: no two MMAs into one accumulator back to back
+#pragma unroll
+              for (int jj = 0; jj < 4; ++jj)
+                if (j0 + jj < live) mma_tf32(acc[j0 + jj], al, bh[jj]);
+#pragma unroll
+              for (int jj = 0; jj < 4; ++jj)
+                if (j0 + jj < live) mma_tf32(acc[j0 + jj], ah, bl[jj]);
+#pragma unroll
+              for (int jj = 0; jj < 4; ++jj)
+                if (j0 + jj < live) mma_tf32(acc[j0 + jj], ah, bh[jj]);
+            }
+          }
+        }
+      }
+    }
+    if (kc == nkc - 1) {  // the pass's last depth: its outputs
+      if (inplace && WC > 1) __syncthreads();  // every warp of the band has read its rows
+      else __syncwarp();                       // the warp's own fragment loads are done
+#pragma unroll
+      for (int j0 = 0; j0 < NT; j0 += 4) {
+        if (j0 < live) {
+          float h[16];  // column block j0 + jj, fragment element q (row + 8 * (q / 2), col + q % 2) at 4 jj + q
+#pragma unroll
+          for (int jj = 0; jj < 4; ++jj) {
+            const int c = kFwdPass * p + 8 * (jb + j0 + jj) + 2 * t;
+            const float b0 = c < L.n ? bsm[c] : 0.f, b1 = c + 1 < L.n ? bsm[c + 1] : 0.f;
+#pragma unroll
+            for (int q = 0; q < 4; ++q) h[4 * jj + q] = acc[j0 + jj][q] + (q % 2 ? b1 : b0);
+          }
+          act_group(L.act, L.w0, h);
+#pragma unroll
+          for (int jj = 0; jj < 4; ++jj)
+#pragma unroll
+            for (int q = 0; q < 4; ++q)
+              if (j0 + jj < live)
+                store(rb + g + 8 * (q / 2), kFwdPass * p + 8 * (jb + j0 + jj) + 2 * t + q % 2, h[4 * jj + q]);
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) acc[j][q] = 0.f;
+    }
+  }
+}
+
+// Route 2: out = hin @ W in fp32 on the CUDA cores, the order of tile_gemm
+// (and so of kernel 6's relu recompute) for every output: acc = 0, then
+// acc = fmaf(h_k, w_kn, acc) for k ascending, z = acc + b_n. The block's R
+// rows and NC columns (N rounded up to 32, 64 or 128) are one tile: each
+// thread keeps R * NC / (4 T) rows of 4 columns; W is staged in chunks of 32
+// x NC (one chunk for a relu decoder's whole layer). inplace: hin is also
+// the output buffer (a single chunk, N <= NC), so every thread finishes its
+// reads first.
+template <int R, int T, int NC, typename Store>
+__device__ __forceinline__ void fwd_fp32_layer(const float* hin, int lda, const FwdLayer& L, float* wsm,
+                                               bool inplace, Store store) {
+  constexpr int CG = NC / 4, RG = T / CG, TR = R / RG, ldw = NC + 4;
+  static_assert(T % CG == 0 && R % RG == 0 && TR >= 1, "route-2 tile");
+  const int tx = threadIdx.x % CG, ty = threadIdx.x / CG;
+  const int K = L.k, N = L.n, kpad = (K + 3) & ~3;
+  for (int n0 = 0; n0 < N; n0 += NC) {
+    float bias[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) bias[j] = n0 + tx * 4 + j < N ? __ldg(L.b + n0 + tx * 4 + j) : 0.f;
+    float acc[TR][4];
+#pragma unroll
+    for (int i = 0; i < TR; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+    for (int k0 = 0; k0 < kpad; k0 += kFwdChunkK) {
+      const int kc = min(kFwdChunkK, kpad - k0);
+      __syncthreads();  // every thread is done with the last chunk
+      for (int e = threadIdx.x; e < kc * NC; e += T) {
+        const int k = e / NC, c = e % NC;
+        wsm[k * ldw + c] = (k0 + k < K && n0 + c < N) ? __ldg(L.w + (int64_t)(k0 + k) * N + n0 + c) : 0.f;
+      }
+      __syncthreads();
+      for (int kk = 0; kk < kc; kk += 4) {
+        float4 bv[4];
+#pragma unroll
+        for (int q = 0; q < 4; ++q) bv[q] = *reinterpret_cast<const float4*>(wsm + (kk + q) * ldw + tx * 4);
+#pragma unroll
+        for (int i = 0; i < TR; ++i) {
+          const float4 av = *reinterpret_cast<const float4*>(hin + (ty * TR + i) * lda + k0 + kk);
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            const float aq = lane(av, q);
+#pragma unroll
+            for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(aq, lane(bv[q], j), acc[i][j]);
+          }
+        }
+      }
+    }
+    if (inplace) __syncthreads();  // every thread has read hin
+#pragma unroll
+    for (int i = 0; i < TR; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) store(ty * TR + i, n0 + tx * 4 + j, act_fwd(L.act, L.w0, acc[i][j] + bias[j]));
+  }
+}
+
+// Route 2 for N <= 8: one thread per (row, column), a dot product over k
+// ascending (the same fmaf order), W read through the read-only cache.
+template <int R, int T, typename Store>
+__device__ __forceinline__ void fwd_dot_layer(const float* hin, int lda, const FwdLayer& L, bool inplace,
+                                              Store store) {
+  constexpr int kPer = (R * 8 + T - 1) / T;
+  float z[kPer];
+#pragma unroll
+  for (int u = 0; u < kPer; ++u) {
+    const int e = threadIdx.x + u * T, r = e / 8, c = e % 8;
+    z[u] = 0.f;
+    if (e < R * 8 && c < L.n) {
+      float acc = 0.f;
+      for (int k = 0; k < L.k; ++k) acc = fmaf(hin[r * lda + k], __ldg(L.w + (int64_t)k * L.n + c), acc);
+      z[u] = acc + __ldg(L.b + c);
+    }
+  }
+  if (inplace) __syncthreads();
+#pragma unroll
+  for (int u = 0; u < kPer; ++u) {
+    const int e = threadIdx.x + u * T;
+    if (e < R * 8) store(e / 8, e % 8, act_fwd(L.act, L.w0, z[u]));
+  }
+}
+
+// One block per tile of R rows walks the whole stack; the tile's activations
+// stay in shared memory. x arrives as the tile's one contiguous run of R x
+// K0 floats (zeros past the batch), with zeros in the columns up to the next
+// multiple of 32. A layer's epilogue writes act(z) for its N columns and
+// zeros up to the next multiple of 8 that the next layer reads, or, for the
+// last layer, the output rows inside the batch.
+template <int C>
+__global__ void __launch_bounds__(kFwdThreads, 2)
+fused_mlp_forward_kernel(const float* __restrict__ x, float* __restrict__ out, int64_t batch,
+                         const __grid_constant__ FwdNet net) {
+  constexpr int R = fwd_rows(C), T = kFwdThreads;
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const int ld = net.ld, lda = net.lda, nl = net.n_layers;
+  const bool inplace = net.nbuf == 1;
+  float* buf0 = smem;
+  float* buf1 = smem + (net.nbuf - 1) * R * lda;
+  float* wsm = smem + net.nbuf * R * lda;
+  float* bsm = wsm + net.wfloats;
+  const int64_t row0 = (int64_t)blockIdx.x * R;
+  {
+    const int k0 = net.layer[0].k, kz = (k0 + 31) / 32 * 32 - k0;
+    const int live = (int)((batch - row0 < R ? batch - row0 : R) * k0);
+    const float* xs = x + row0 * k0;
+#pragma unroll 4
+    for (int e = threadIdx.x; e < R * k0; e += T) buf0[(e / k0) * lda + e % k0] = e < live ? __ldg(xs + e) : 0.f;
+    if (kz > 0)
+      for (int e = threadIdx.x; e < R * kz; e += T) buf0[(e / kz) * lda + k0 + e % kz] = 0.f;
+  }
+  for (int l = 0; l < nl; ++l) {
+    const FwdLayer& L = net.layer[l];
+    const bool last = l == nl - 1;
+    const int n = L.n;
+    const float* hin = (l & 1) ? buf1 : buf0;
+    float* hout = (l & 1) ? buf0 : buf1;
+    // the bias in one of two buffers by layer, so that no warp still reading the last layer's meets it
+    float* bias = bsm + (l & 1) * ld;
+    if (L.route == kRouteTC)
+      for (int c = threadIdx.x; c < n; c += T) bias[c] = __ldg(L.b + c);
+    __syncthreads();  // the layer's input and bias are in place, the weight region is free
+    auto store = [&](int r, int c, float h) {  // h = act(z) at (r, c)
+      if (c < n) {
+        if (!last) hout[r * lda + c] = h;
+        else if (row0 + r < batch) out[(row0 + r) * n + c] = h;
+      } else if (!last && c < ld) {
+        hout[r * lda + c] = 0.f;
+      }
+    };
+    if (L.route == kRouteTC) {
+      fwd_tc_layer<fwd_warp_cols(C), T>(hin, lda, L, wsm, bias, inplace, net.ring, store);
+      continue;
+    }
+    switch (L.chunk) {
+      case 32: fwd_fp32_layer<R, T, 32>(hin, lda, L, wsm, inplace, store); break;
+      case 64: fwd_fp32_layer<R, T, 64>(hin, lda, L, wsm, inplace, store); break;
+      case 128: fwd_fp32_layer<R, T, 128>(hin, lda, L, wsm, inplace, store); break;
+      default: fwd_dot_layer<R, T>(hin, lda, L, inplace, store);
+    }
+  }
 }
 
 // Pass 1 of the backward: per tile of 32 * MT rows, recompute the forward,
@@ -812,10 +1178,6 @@ cudaError_t pack_net(int n_layers, const int32_t* dims, const int32_t* acts, con
   return cudaSuccess;
 }
 
-size_t tile_smem_bytes(int ld) {
-  return sizeof(float) * (size_t)(2 * kTileRows * ld + kChunkK * kChunkLd);
-}
-
 // Pass 1's shared memory: two activation buffers of 32 * mt rows (row stride
 // ld + 4) and two weight-chunk buffers of 32 * nt output columns.
 size_t backward_tile_smem_bytes(int ld, int mt, int nt) {
@@ -831,7 +1193,75 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
-unsigned grid_tiles(int64_t batch) { return (unsigned)((batch + kTileRows - 1) / kTileRows); }
+// The forward's layout from the host's choices (ops/fused_mlp.py:forward_plan,
+// which computes the same layout to make them): plan words are the block
+// shape, the ring depth, then the route of each layer. Fills the kernel
+// parameter, the split jobs and the shared bytes. Returns
+// cudaErrorInvalidValue for a stack or a plan the kernels do not take: a
+// relu layer on route 1, split weights past the scratch's split_cap
+// 16-byte words, or more shared memory than a block has.
+cudaError_t pack_forward(int n_layers, const int32_t* dims, const int32_t* acts, const float* w0s,
+                         const float* const* ws, const float* const* bs, const int32_t* words, uint4* wsplit,
+                         int64_t split_cap, int* config, size_t* smem, FwdNet* net, SplitJobs* jobs) {
+  if (n_layers < 1 || n_layers > kMaxLayers || dims == nullptr || acts == nullptr || w0s == nullptr ||
+      ws == nullptr || bs == nullptr || words == nullptr || ((uintptr_t)wsplit & 15))
+    return cudaErrorInvalidValue;
+  memset(net, 0, sizeof(FwdNet));
+  memset(jobs, 0, sizeof(SplitJobs));
+  const int c = words[0], ring = words[1];
+  if (c < 0 || c >= kFwdConfigs || (ring != 2 && ring != 4 && ring != 8)) return cudaErrorInvalidValue;
+  int widest = 0;
+  for (int l = 0; l <= n_layers; ++l) {
+    if (dims[l] < 1) return cudaErrorInvalidValue;
+    widest = dims[l] > widest ? dims[l] : widest;
+  }
+  const int ld = (widest + 31) / 32 * 32, nbuf = ld <= kFwdPass ? 1 : 2;
+  int64_t wfloats = 0, split = 0;
+  int bias = 0;
+  for (int l = 0; l < n_layers; ++l) {
+    FwdLayer& L = net->layer[l];
+    if (acts[l] < kId || acts[l] > kSine || ws[l] == nullptr || bs[l] == nullptr) return cudaErrorInvalidValue;
+    L.w = ws[l];
+    L.b = bs[l];
+    L.k = dims[l];
+    L.n = dims[l + 1];
+    L.act = acts[l];
+    L.w0 = w0s[l];
+    L.route = words[2 + l];
+    if (L.route == kRouteTC) {  // relu's mask must stay the fp32 one that kernel 6 repeats
+      if (acts[l] == kRelu || wsplit == nullptr) return cudaErrorInvalidValue;
+      L.chunk = (L.n + 7) / 8 < kFwdMaxNB ? (L.n + 7) / 8 : kFwdMaxNB;
+      SplitJob& J = jobs->job[jobs->n_jobs++];
+      J.w = ws[l];
+      J.ws = wsplit + split;
+      J.k = L.k;
+      J.n = L.n;
+      J.nb = L.chunk;
+      J.k8 = (L.k + 7) / 8;
+      J.count = (L.n + kFwdPass - 1) / kFwdPass * J.k8 * J.nb * 32;
+      L.ws = J.ws;
+      split += J.count;
+      wfloats = wfloats > ring * kFwdSteps * L.chunk * 32 * 4 ? wfloats : ring * kFwdSteps * L.chunk * 32 * 4;
+      bias = 2 * ld;
+    } else if (L.route == kRouteFP32) {
+      L.chunk = L.n <= 8 ? 0 : L.n <= 32 ? 32 : L.n <= 64 ? 64 : 128;
+      if (L.chunk) wfloats = wfloats > kFwdChunkK * (L.chunk + 4) ? wfloats : kFwdChunkK * (L.chunk + 4);
+    } else {
+      return cudaErrorInvalidValue;
+    }
+  }
+  if (split > split_cap) return cudaErrorInvalidValue;
+  net->n_layers = n_layers;
+  net->ld = ld;
+  net->lda = ld + 4;
+  net->nbuf = nbuf;
+  net->ring = ring;
+  net->wfloats = (int)wfloats;
+  *smem = sizeof(float) * ((size_t)nbuf * fwd_rows(c) * (ld + 4) + wfloats + bias);
+  if (*smem > (size_t)kMaxSharedBytes) return cudaErrorInvalidValue;
+  *config = c;
+  return cudaSuccess;
+}
 
 template <int MT, int NT>
 cudaError_t launch_backward_tiles(const float* x, const float* g, float* dact, float* hact, float* dzs,
@@ -844,6 +1274,16 @@ cudaError_t launch_backward_tiles(const float* x, const float* g, float* dact, f
   return cudaGetLastError();
 }
 
+template <int C>
+cudaError_t launch_forward(const float* x, float* out, int64_t batch, const FwdNet& net, size_t smem,
+                           cudaStream_t s) {
+  cudaError_t err = allow_smem(fused_mlp_forward_kernel<C>, smem);
+  if (err != cudaSuccess) return err;
+  const unsigned tiles = (unsigned)((batch + fwd_rows(C) - 1) / fwd_rows(C));
+  fused_mlp_forward_kernel<C><<<tiles, kFwdThreads, smem, s>>>(x, out, batch, net);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -851,20 +1291,32 @@ extern "C" {
 // out (batch, dims[L]) = the stack applied to x (batch, dims[0]).
 // dims: host array of L+1 widths; acts, w0s: host arrays of L codes
 // (0 id, 1 relu, 2 gelu, 3 sine) and sine frequencies; ws, bs: host arrays
-// of L device pointers. batch == 0 launches nothing.
+// of L device pointers; plan: host array of 2 + L words (pack_forward);
+// wsplit: 16-byte aligned device scratch of split_cap 16-byte words for the
+// split weights. batch == 0 launches nothing.
 int fused_mlp_forward(const float* x, float* out, int64_t batch, int n_layers, const int32_t* dims,
                       const int32_t* acts, const float* w0s, const float* const* ws,
-                      const float* const* bs, void* stream) {
-  Net net;
-  cudaError_t err = pack_net(n_layers, dims, acts, w0s, ws, bs, nullptr, nullptr, &net);
+                      const float* const* bs, const int32_t* plan, void* wsplit, int64_t split_cap,
+                      void* stream) {
+  FwdNet net;
+  SplitJobs jobs;
+  int config = 0;
+  size_t smem = 0;
+  cudaError_t err = pack_forward(n_layers, dims, acts, w0s, ws, bs, plan, reinterpret_cast<uint4*>(wsplit),
+                                 split_cap, &config, &smem, &net, &jobs);
   if (err != cudaSuccess) return (int)err;
   if (batch <= 0) return (int)cudaSuccess;
-  const size_t smem = tile_smem_bytes(net.ld);
-  err = allow_smem(fused_mlp_forward_kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  fused_mlp_forward_kernel<<<grid_tiles(batch), kThreads, smem, (cudaStream_t)stream>>>(x, out, batch,
-                                                                                    net);
-  return (int)cudaGetLastError();
+  cudaStream_t s = (cudaStream_t)stream;
+  if (jobs.n_jobs > 0) {
+    int most = 0;
+    for (int q = 0; q < jobs.n_jobs; ++q) most = jobs.job[q].count > most ? jobs.job[q].count : most;
+    const int blocks = (most + 255) / 256 < 1024 ? (most + 255) / 256 : 1024;
+    fused_mlp_split_weights_kernel<<<blocks, 256, 0, s>>>(jobs);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  return (int)(config == 0 ? launch_forward<0>(x, out, batch, net, smem, s)
+                            : launch_forward<1>(x, out, batch, net, smem, s));
 }
 
 // dW_l, db_l (zeroed by the caller; dws, dbs: host arrays of L device

@@ -19,12 +19,17 @@
 // (__fmul_rn / __fadd_rn) in the reference's order, so no FMA contraction
 // moves a weight or the truncation point. All four kernels share corners().
 //
-// Design of the all-level forward: one thread per (point, level); blockIdx.y
-// is the level, so a block's per-level constants (a __grid_constant__ kernel
-// parameter, read through the constant cache) are uniform across the block.
-// The table is read from global memory: it is not limited to what fits on
-// chip (the TPU kernel's 8 MB VMEM gate is gone), and the flagship's 625 KB
-// table stays in the 50 MB L2.
+// Design of the all-level forward: a block owns a run of 128 (or 64) points
+// over all levels. Per-level constants and the points' coordinates are
+// copied to shared memory once (not reread per level, and read without the
+// constant cache's serialisation where a warp's threads index different
+// levels); corner rows are gathered as float4 or float2 where F allows; the
+// block's (points x L*F) output is assembled in shared memory and written as
+// one contiguous run in 16-byte stores, where one thread per (point, level)
+// used to store F scalars at a stride of L*F floats. The table is read from
+// global memory: it is not limited to what fits on chip (the TPU kernel's
+// 8 MB VMEM gate is gone), and the flagship's 625 KB table stays in the
+// 50 MB L2.
 //
 // Design of the all-level table gradient: a zeroed (T, F) buffer (nothing
 // rereads a whole accumulator per tile as the TPU kernel did) that one call
@@ -131,15 +136,14 @@ __device__ __forceinline__ uint32_t prime(int k) {
   return k == 0 ? 1u : k == 1 ? 2654435761u : k == 2 ? 805459861u : 3674653429u;
 }
 
-// Rows and weights of the 2^D corners of point xp on level lv.
+// Rows and weights of the 2^D corners of the point at coordinates xv on level lv.
 template <int D>
-__device__ __forceinline__ void corners(const float* __restrict__ xp, const Level& lv,
-                                        int* rows, float* w) {
+__device__ __forceinline__ void corners_at(const float (&xv)[D], const Level& lv, int* rows, float* w) {
   int xi[D];
   float xf[D];
 #pragma unroll
   for (int k = 0; k < D; ++k) {
-    const float s = __fmul_rn(__ldg(xp + k), (float)lv.res[k]);
+    const float s = __fmul_rn(xv[k], (float)lv.res[k]);
     int c = __float2int_rz(s);  // truncation, as astype(int32)
     if (lv.dense) c = min(max(c, 0), lv.res[k] - 1);
     xi[k] = c;
@@ -168,27 +172,87 @@ __device__ __forceinline__ void corners(const float* __restrict__ xp, const Leve
   }
 }
 
+// corners_at() of point xp (D floats in global memory).
 template <int D>
+__device__ __forceinline__ void corners(const float* __restrict__ xp, const Level& lv, int* rows, float* w) {
+  float xv[D];
+#pragma unroll
+  for (int k = 0; k < D; ++k) xv[k] = __ldg(xp + k);
+  corners_at<D>(xv, lv, rows, w);
+}
+
+// Kernel 1: a block owns `points` consecutive points over every level. It
+// copies the per-level constants and the points' coordinates to shared
+// memory (coalesced), then its threads take (point, level) pairs with the
+// level slowest, so a warp shares one level (broadcast reads of its
+// constants) and neighbouring points; each gathers its 2^D corner rows V
+// floats at a time (V = 4 or 2 where F and the table's alignment allow) and
+// writes the level's F features to a shared-memory tile of the block's
+// output (row stride width | 1: conflict-free scalar stores). The tile is
+// one contiguous run of out, written with 16-byte stores from the first
+// 16-byte boundary on and scalar stores at its two ends.
+template <int D, int V>
 __global__ void __launch_bounds__(kThreads)
 hash_encode_forward_kernel(const float* __restrict__ x, const float* __restrict__ table,
-                           float* __restrict__ out, int64_t n, int n_features, int n_levels,
+                           float* __restrict__ out, int64_t n, int n_features, int n_levels, int points,
                            const __grid_constant__ Levels levels) {
-  const int64_t i = (int64_t)blockIdx.x * kThreads + threadIdx.x;
-  if (i >= n) return;
-  const int l = blockIdx.y;
-  int rows[1 << D];
-  float w[1 << D];
-  corners<D>(x + i * D, levels.lv[l], rows, w);
-  float* o = out + i * (int64_t)(n_levels * n_features) + (int64_t)l * n_features;
-  for (int f = 0; f < n_features; ++f) {
-    float acc = 0.f;
-#pragma unroll
-    for (int c = 0; c < (1 << D); ++c) {
-      const float t = __ldg(table + (int64_t)rows[c] * n_features + f);
-      acc = (c == 0) ? __fmul_rn(t, w[c]) : __fadd_rn(acc, __fmul_rn(t, w[c]));
-    }
-    o[f] = acc;
+  extern __shared__ float4 smem4[];
+  Level* lv_s = reinterpret_cast<Level*>(smem4);
+  float* xs = reinterpret_cast<float*>(lv_s + n_levels);
+  const int width = n_levels * n_features, ldo = width | 1;
+  float* os = xs + (points * D + 3) / 4 * 4;
+  const int64_t p0 = (int64_t)blockIdx.x * points;
+  const int np = (int)(n - p0 < points ? n - p0 : points);
+  {
+    const int* src = reinterpret_cast<const int*>(levels.lv);
+    int* dst = reinterpret_cast<int*>(lv_s);
+    for (int e = threadIdx.x; e < n_levels * kLevelWords; e += kThreads) dst[e] = src[e];
+    for (int e = threadIdx.x; e < np * D; e += kThreads) xs[e] = __ldg(x + p0 * D + e);
   }
+  __syncthreads();
+  for (int e = threadIdx.x; e < np * n_levels; e += kThreads) {
+    const int l = e / np, p = e % np;
+    float xv[D];
+#pragma unroll
+    for (int k = 0; k < D; ++k) xv[k] = xs[p * D + k];
+    int rows[1 << D];
+    float w[1 << D];
+    corners_at<D>(xv, lv_s[l], rows, w);
+    float* o = os + p * ldo + l * n_features;
+    for (int f = 0; f < n_features; f += V) {
+      float acc[V];
+#pragma unroll
+      for (int c = 0; c < (1 << D); ++c) {
+        const float* src = table + (int64_t)rows[c] * n_features + f;
+        float t[V];
+        if constexpr (V == 4) {
+          const float4 v = __ldg(reinterpret_cast<const float4*>(src));
+          t[0] = v.x; t[1] = v.y; t[2] = v.z; t[3] = v.w;
+        } else if constexpr (V == 2) {
+          const float2 v = __ldg(reinterpret_cast<const float2*>(src));
+          t[0] = v.x; t[1] = v.y;
+        } else {
+          t[0] = __ldg(src);
+        }
+#pragma unroll
+        for (int q = 0; q < V; ++q) acc[q] = (c == 0) ? __fmul_rn(t[q], w[c]) : __fadd_rn(acc[q], __fmul_rn(t[q], w[c]));
+      }
+#pragma unroll
+      for (int q = 0; q < V; ++q) o[f + q] = acc[q];
+    }
+  }
+  __syncthreads();
+  float* ob = out + p0 * width;
+  const int total = np * width;
+  const int head = min(total, (int)((16 - ((uintptr_t)ob & 15)) & 15) / 4);  // floats before a 16-byte boundary
+  const int quads = (total - head) / 4;
+  auto tile = [&](int q) { return os[(q / width) * ldo + q % width]; };
+  for (int q = threadIdx.x; q < head; q += kThreads) ob[q] = tile(q);
+  for (int i = threadIdx.x; i < quads; i += kThreads) {
+    const int q = head + 4 * i;
+    *reinterpret_cast<float4*>(ob + q) = make_float4(tile(q), tile(q + 1), tile(q + 2), tile(q + 3));
+  }
+  for (int q = head + 4 * quads + threadIdx.x; q < total; q += kThreads) ob[q] = tile(q);
 }
 
 // p[0:V] += v[0:V] with one V-wide atomic (p lies on 4V bytes).
@@ -480,10 +544,18 @@ cudaError_t dispatch_dim(int d, Args... args) {
 
 template <int D>
 struct ForwardLaunch {
-  static void run(dim3 grid, cudaStream_t stream, const float* x, const float* table,
+  static void run(unsigned blocks, int points, int smem, cudaStream_t stream, const float* x, const float* table,
                   float* out, int64_t n, int n_features, int n_levels, const Levels& lv) {
-    hash_encode_forward_kernel<D><<<grid, kThreads, 0, stream>>>(x, table, out, n, n_features,
-                                                                  n_levels, lv);
+    const bool aligned4 = ((uintptr_t)table & 15) == 0, aligned2 = ((uintptr_t)table & 7) == 0;
+    if (n_features % 4 == 0 && aligned4)
+      hash_encode_forward_kernel<D, 4><<<blocks, kThreads, smem, stream>>>(x, table, out, n, n_features, n_levels,
+                                                                           points, lv);
+    else if (n_features % 2 == 0 && aligned2)
+      hash_encode_forward_kernel<D, 2><<<blocks, kThreads, smem, stream>>>(x, table, out, n, n_features, n_levels,
+                                                                           points, lv);
+    else
+      hash_encode_forward_kernel<D, 1><<<blocks, kThreads, smem, stream>>>(x, table, out, n, n_features, n_levels,
+                                                                           points, lv);
   }
 };
 
@@ -598,8 +670,17 @@ cudaError_t unpack_plan(int d, int n_features, int n_levels, const Levels& level
   return cudaSuccess;
 }
 
-dim3 grid_for(int64_t n, int n_levels) {
-  return dim3((unsigned)((n + kThreads - 1) / kThreads), (unsigned)n_levels);
+// Kernel 1's points per block: 128, or 64 where 128 would give fewer than
+// two blocks an SM; fewer (a multiple of 4) where the output tile would
+// pass the 48 KB of shared memory a block has without the opt-in. Returns
+// the block's shared bytes.
+int forward_points(int64_t n, int d, int n_features, int n_levels, int sms, int* points) {
+  const int ldo = (n_levels * n_features) | 1;
+  int p = n >= (int64_t)128 * 2 * sms ? 128 : 64;
+  const int room = (kDefaultSharedBytes - n_levels * (int)sizeof(Level)) / (int)sizeof(float) - 4;
+  while (p > 4 && p * (ldo + d) > room) p -= 4;
+  *points = p;
+  return n_levels * (int)sizeof(Level) + (int)sizeof(float) * ((p * d + 3) / 4 * 4 + p * ldo);
 }
 
 }  // namespace
@@ -616,8 +697,18 @@ int hash_encode_forward(const float* x, const float* table, float* out, int64_t 
   cudaError_t err = pack_levels(d, n_features, n_levels, level_consts, &levels);
   if (err != cudaSuccess) return (int)err;
   if (n <= 0) return (int)cudaSuccess;
-  return (int)dispatch_dim<ForwardLaunch>(d, grid_for(n, n_levels), (cudaStream_t)stream, x,
-                                          table, out, n, n_features, n_levels, levels);
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    err = cudaGetDevice(&dev);
+    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return (int)err;
+  }
+  int points = 0;
+  const int smem = forward_points(n, d, n_features, n_levels, sms, &points);
+  const unsigned blocks = (unsigned)((n + points - 1) / points);
+  return (int)dispatch_dim<ForwardLaunch>(d, blocks, points, smem, (cudaStream_t)stream, x, table, out, n,
+                                          n_features, n_levels, levels);
 }
 
 // dtable[row(n, l, c), f] += g[n, l*F + f] * w(n, l, c): the privatised

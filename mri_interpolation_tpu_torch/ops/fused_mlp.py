@@ -17,13 +17,22 @@ Dispatch: CPU tensors go to the plain PyTorch versions
 (:func:`mlp_forward_reference`, :func:`mlp_backward_reference`); CUDA tensors
 go to the kernels, or the wrapper raises. Each wrapper adds one to its entry
 of :data:`LAUNCHES` per call that launches its kernel(s), and nowhere else.
+
+The forward kernel routes each layer before launch, by activation and shape
+(:func:`forward_plan`; the C side derives the layout from its choices and
+refuses a plan that does not fit): relu layers on fp32
+FMAs in the order that the backward repeats, sine, gelu and identity layers
+on the tensor cores in 3xTF32, and every layer of a stack too wide for the
+tensor-core route's shared memory on fp32. No route is a fallback: the plan
+is fixed before the launch, and a refused launch raises.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
-from typing import List, Optional, Sequence, Tuple
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -44,6 +53,9 @@ __all__ = [
     "relu_masks",
     "mlp_backward_reference_masked",
     "shared_bytes",
+    "ForwardPlan",
+    "forward_plan",
+    "forward_plan_words",
     "scratch_shape",
     "FusedMLP",
     "fused_mlp_forward",
@@ -56,10 +68,24 @@ LAUNCHES = {"fused_mlp_forward": 0, "fused_mlp_backward": 0}
 
 MAX_LAYERS = 16  # csrc/fused_mlp.cu kMaxLayers
 _ACT_CODES = {"id": 0, "relu": 1, "gelu": 2, "sine": 3}
-# csrc/fused_mlp.cu: the forward's tile rows and staged chunk (K x padded N),
-# Hopper's per-block limit
+# the widths both kernels take: two 32-row activation buffers of the widest
+# layer (rounded up to 32) and one staged 32 x 128 weight chunk must fit
+# Hopper's per-block limit (shared_bytes)
 _TILE_ROWS, _CHUNK_K, _CHUNK_LD = 32, 32, 132
 _MAX_SHARED_BYTES = 232448
+# csrc/fused_mlp.cu, the forward: block shapes (tile rows of a block of 8
+# warps, two blocks an SM); routes; the widest route-1 pass (column blocks
+# of 8), its staged steps of 8, route 2's chunk depth
+FWD_ROWS = (64, 32)
+ROUTE_TC, ROUTE_FP32 = 1, 2
+_FWD_MAX_NB, _FWD_STEPS, _FWD_CHUNK_K = 16, 4, 32
+# route 1's ring of staged weight chunks: the deepest that fits the block's
+# share of an SM (all of it where the grid has no more blocks than SMs,
+# else _FWD_TWO_BLOCKS_BYTES, so that two blocks share one)
+_FWD_RINGS = (8, 4, 2)
+_FWD_TWO_BLOCKS_BYTES = 113 * 1024
+# the SMs of an H100 SXM: forward_plan's default where no card is asked
+H100_SMS = 132
 # the backward: its largest row tile (the scratch is padded to it), the
 # weight-gradient tile (dW in 128 x 128 blocks) and its staged rows
 _BWD_MAX_TILE_ROWS, _GRAD_TILE, _GRAD_ROWS = 64, 128, 32
@@ -136,12 +162,13 @@ def mlp_backward_reference(weights: Sequence[torch.Tensor], biases: Sequence[tor
 
 def relu_masks(weights: Sequence[torch.Tensor], biases: Sequence[torch.Tensor], x: torch.Tensor,
                acts: Sequence[Act]) -> dict:
-    """{l: z_l > 0} for every relu layer l, with z_l from :func:`mlp_forward`
-    of the stack cut after layer l (identity there): on the card, kernel 5,
-    whose fp32 product the backward kernel repeats bit for bit for relu
-    layers; on the CPU, the plain version. No autograd."""
+    """{l: z_l > 0} for every relu layer l, as relu(z_l) > 0 (the same
+    thing, NaN and -0 included) from :func:`mlp_forward` of the stack cut
+    after layer l: on the card, kernel 5's fp32 route, whose order of
+    additions the backward kernel repeats bit for bit for relu layers; on
+    the CPU, the plain version. No autograd."""
     with torch.no_grad():
-        return {l: mlp_forward(weights[:l + 1], biases[:l + 1], x, tuple(acts[:l]) + (("id",),)) > 0
+        return {l: mlp_forward(weights[:l + 1], biases[:l + 1], x, tuple(acts[:l + 1])) > 0
                 for l, a in enumerate(acts) if a[0] == "relu"}
 
 
@@ -183,7 +210,7 @@ def _library() -> ctypes.CDLL:
     lib = build.load("fused_mlp")
     if lib.fused_mlp_forward.argtypes is None:
         p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-        lib.fused_mlp_forward.argtypes = [p, p, i64, i32, p, p, p, p, p, p]
+        lib.fused_mlp_forward.argtypes = [p, p, i64, i32, p, p, p, p, p, p, p, i64, p]
         lib.fused_mlp_backward.argtypes = [p, p, p, p, p, p, i64, i64, i32, p, p, p, p, p, p, p, p]
         for fn in (lib.fused_mlp_forward, lib.fused_mlp_backward):
             fn.restype = ctypes.c_int
@@ -193,11 +220,101 @@ def _library() -> ctypes.CDLL:
 
 
 def shared_bytes(dims: Sequence[int]) -> int:
-    """Dynamic shared memory of a tile kernel for the widths ``dims``: two
-    32-row activation buffers of the widest layer (rounded up to 32) and one
-    staged weight chunk."""
+    """The widths the kernels take: two 32-row activation buffers of the
+    widest layer (rounded up to 32) and one staged 32 x 128 weight chunk, as
+    shared memory; a stack past ``_MAX_SHARED_BYTES`` is refused. Within it
+    :func:`forward_plan` always finds a block shape that fits, and the
+    backward's 32-row tiles fit."""
     ld = -(-max(dims) // _CHUNK_K) * _CHUNK_K
     return 4 * (2 * _TILE_ROWS * ld + _CHUNK_K * _CHUNK_LD)
+
+
+class ForwardPlan(NamedTuple):
+    """How the forward kernel runs a stack (:func:`forward_plan`). The
+    kernel takes the choices (config, ring, routes: :func:`forward_plan_words`)
+    and derives the rest itself (``csrc/fused_mlp.cu:pack_forward``); the
+    rest is here for the choice and for the split scratch's size."""
+
+    config: int  # index of FWD_ROWS (csrc/fused_mlp.cu: fwd_rows, fwd_warp_cols)
+    rows: int  # a block's tile rows
+    routes: Tuple[int, ...]  # per layer: ROUTE_TC (3xTF32 tensor cores) or ROUTE_FP32
+    chunks: Tuple[int, ...]  # route 1: column blocks of 8 a pass; route 2: columns a chunk (0: N <= 8, a dot product)
+    nbuf: int  # activation buffers: 1 (each layer writes over its input) or 2
+    ring: int  # route 1's staged weight chunks in flight
+    shared_bytes: int
+    split_words: int  # 16-byte words of the split-weight scratch (route-1 layers)
+
+
+def _fwd_chunk(route: int, n: int) -> int:
+    if route == ROUTE_TC:
+        return min(_FWD_MAX_NB, -(-n // 8))
+    return 0 if n <= 8 else 32 if n <= 32 else 64 if n <= 64 else 128
+
+
+def _fwd_layout(config: int, dims: Sequence[int], routes: Sequence[int], ring: int) -> ForwardPlan:
+    rows = FWD_ROWS[config]
+    ld = -(-max(dims) // 32) * 32
+    nbuf = 1 if ld <= 128 else 2
+    chunks = tuple(_fwd_chunk(r, n) for r, n in zip(routes, dims[1:]))
+    wfloats, bias, split = 0, 0, 0
+    for k, n, r, c in zip(dims[:-1], dims[1:], routes, chunks):
+        if r == ROUTE_TC:
+            wfloats = max(wfloats, ring * _FWD_STEPS * c * 32 * 4)  # ring stages of 4 steps, 4 words a fragment
+            bias = 2 * ld  # two staged biases, by layer
+            split += -(-n // (8 * _FWD_MAX_NB)) * -(-k // 8) * c * 32
+        elif c:
+            wfloats = max(wfloats, _FWD_CHUNK_K * (c + 4))
+    smem = 4 * (nbuf * rows * (ld + 4) + wfloats + bias)
+    return ForwardPlan(config, rows, tuple(routes), chunks, nbuf, ring, smem, split)
+
+
+def _fwd_deepest(config: int, dims: Sequence[int], routes: Sequence[int], batch: int, sms: int) -> ForwardPlan:
+    rows = FWD_ROWS[config]
+    budget = _MAX_SHARED_BYTES if -(-batch // rows) <= sms else _FWD_TWO_BLOCKS_BYTES
+    plans = [_fwd_layout(config, dims, routes, ring) for ring in _FWD_RINGS]
+    return next((p for p in plans if p.shared_bytes <= budget), plans[-1])
+
+
+def forward_plan(dims: Sequence[int], acts: Sequence[Act], batch: int, sms: int = H100_SMS) -> ForwardPlan:
+    """The forward kernel's plan for the widths ``dims`` at ``batch`` rows
+    on a card of ``sms`` SMs (a pure function of them, cached).
+
+    Route per layer, by activation: relu on the CUDA cores in fp32, where
+    the backward repeats its 0/1 mask bit for bit; sine, gelu and the
+    identity on the tensor cores in 3xTF32. Block shape: of the shapes
+    whose shared memory fits, the one of most rows that still gives a block
+    per SM, else the one of fewest rows; for each, the deepest ring of
+    route-1 weight chunks (``_fwd_deepest``). A stack that no shape holds
+    with route-1 weight stages (the widest ones) takes route 2 for every
+    layer. Where nothing fits (a stack past ``shared_bytes``'s limit), the
+    last shape, which the kernel refuses."""
+    return _forward_plan(tuple(int(d) for d in dims), tuple(tuple(a) for a in acts), int(batch), int(sms))
+
+
+@functools.lru_cache(maxsize=1024)
+def _forward_plan(dims: Tuple[int, ...], acts: Tuple[Act, ...], batch: int, sms: int) -> ForwardPlan:
+    mixed = tuple(ROUTE_FP32 if a[0] == "relu" else ROUTE_TC for a in acts)
+    for routes in (mixed, (ROUTE_FP32,) * len(acts)):
+        plans = [_fwd_deepest(c, dims, routes, batch, sms) for c in range(len(FWD_ROWS))]
+        fits = [p for p in plans if p.shared_bytes <= _MAX_SHARED_BYTES]
+        if fits:
+            full = [p for p in fits if -(-batch // p.rows) >= sms]
+            return full[0] if full else min(fits, key=lambda p: p.rows)
+    return _fwd_layout(len(FWD_ROWS) - 1, dims, (ROUTE_FP32,) * len(acts), _FWD_RINGS[-1])
+
+
+@functools.lru_cache(maxsize=1024)
+def forward_plan_words(plan: ForwardPlan):
+    """The plan's choices as the kernel reads them (int32): block shape,
+    ring depth, then the route of each layer. Read only by the kernel's
+    host side, so one array serves every call with this plan."""
+    words = [plan.config, plan.ring, *plan.routes]
+    return (ctypes.c_int32 * len(words))(*words)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _chain(weights, biases, x, acts) -> List[int]:
@@ -260,10 +377,13 @@ def _forward_kernel(weights, biases, x, acts) -> torch.Tensor:
     n = x.shape[0]
     out = torch.empty((n, dims[-1]), dtype=torch.float32, device=x.device)
     lib = _library()
+    plan = forward_plan(dims, acts, n, _sm_count(x.device.index))
+    split = torch.empty((max(plan.split_words, 1), 4), dtype=torch.int32, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.fused_mlp_forward(x.data_ptr(), out.data_ptr(), n, len(weights),
-                                    *_layer_arrays(dims, acts, weights, biases), stream)
+                                    *_layer_arrays(dims, acts, weights, biases), forward_plan_words(plan),
+                                    split.data_ptr(), split.shape[0], stream)
     _raise_on(lib, "fused_mlp_forward", err)
     if n > 0:
         LAUNCHES["fused_mlp_forward"] += 1

@@ -1,6 +1,6 @@
-"""The kernel-6 ablation tool (``mri_interpolation_tpu_torch.ablate``) on the
-CPU: every cut still matches the backward's source, and the tool runs only
-on the card."""
+"""The fused-MLP ablation tool (``mri_interpolation_tpu_torch.ablate``) on
+the CPU: every cut and every variant still matches the source, and the tool
+runs only on the card."""
 
 import pytest
 import torch
@@ -14,6 +14,13 @@ def test_every_cut_matches_the_source_once(cut):
     source = build.SOURCES["fused_mlp"].read_text()
     cut_text = ablate.cut_source(source, cut)
     assert (cut_text == source) == (cut == "none")
+
+
+@pytest.mark.parametrize("variant", sorted(ablate.VARIANTS))
+def test_every_variant_matches_the_source_once(variant):
+    source = build.SOURCES["fused_mlp"].read_text()
+    assert ablate.cut_source(source, variant) != source
+    assert variant not in ablate.CUTS
 
 
 def test_a_stale_cut_raises():

@@ -171,6 +171,25 @@ def test_table_grad_kernel_path_raises_instead_of_falling_back(monkeypatch):
     assert set(he.LAUNCHES.values()) == {0}
 
 
+def test_forward_kernel_paths_raise_instead_of_falling_back(monkeypatch):
+    """The two forwards' kernel sides (kernel 1; kernel 5 on a relu stack
+    and a sine stack, both routes) build their library or raise: with
+    nothing built and no nvcc they never take the plain version."""
+    monkeypatch.setattr(build, "_loaded", {})
+    monkeypatch.setattr(build, "find_nvcc", lambda: None)
+    enc = HashGridEncoding(dim=2, n_levels=10, n_features_per_level=2, log2_hashmap_size=17, base_resolution=16,
+                           finest_resolution=None, per_level_scale=1.4)
+    he.reset_launches()
+    fm.reset_launches()
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        he._launch("hash_encode_forward", torch.zeros((5, 2)), enc.init(), torch.empty((5, 20)), enc)
+    ws, bs, x = [torch.zeros((20, 64)), torch.zeros((64, 1))], [torch.zeros(64), torch.zeros(1)], torch.zeros((5, 20))
+    for acts in (fm.mlp_acts(1, "relu"), fm.siren_acts(1, 30.0, 30.0)):
+        with pytest.raises(RuntimeError, match="nvcc not found"):
+            fm._forward_kernel(ws, bs, x, acts)
+    assert set(he.LAUNCHES.values()) == {0} and set(fm.LAUNCHES.values()) == {0}
+
+
 MULTI = dict(dim_in=2, n_frames=2)
 
 

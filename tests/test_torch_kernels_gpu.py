@@ -500,3 +500,122 @@ def test_fused_model_gradients_on_card_match_cpu(model, cuda_device, full_fp32):
         grads[str(dev)] = {k: p.grad.detach().cpu().clone() for k, p in m.named_parameters()}
     for key, want in grads["cpu"].items():
         assert _share(grads[str(cuda_device)][key], want) <= 1e-4, key
+
+
+# ---------------------------------------------------------------------------
+# kernel 5's routes and block shapes (fm.forward_plan): route 1 (3xTF32 on the
+# tensor cores) for sine, gelu and identity layers, route 2 (fp32 FMAs) for
+# relu layers and for every layer of a stack too wide for route 1; widths 8
+# to 832, first layers of K <= 8, last layers of N = 1, ragged batches that
+# take each block shape. Tolerances as above.
+
+FWD_SHAPES = {
+    # name: (widths, acts, routes the plan gives)
+    "sine_2_128x4_128": ([2] + [128] * 5, fm.siren_acts(4, 30.0, 30.0), (1,) * 5),
+    "sine_3_64x3_1": ([3, 64, 64, 64, 1], fm.siren_acts(3, 30.0, 30.0), (1,) * 4),
+    "relu_20_64_1": ([20, 64, 1], fm.mlp_acts(1, "relu"), (2, 1)),
+    "relu_32_128_1": ([32, 128, 1], fm.mlp_acts(1, "relu"), (2, 1)),
+    "relu_8_20_8_1": ([8, 20, 8, 1], fm.mlp_acts(2, "relu"), (2, 2, 1)),
+    "gelu_8_200_136_3": ([8, 200, 136, 3], fm.mlp_acts(2, "gelu"), (1, 1, 1)),
+    "id_5_7": ([5, 7], (("id",),), (1,)),
+    "sine_3_352x2_1": ([3, 352, 352, 1], fm.siren_acts(2, 30.0, 30.0), (1, 1, 1)),
+    "sine_3_800_1": ([3, 800, 1], fm.siren_acts(1, 30.0, 30.0), (2, 2)),
+    "relu_8_832_3": ([8, 832, 3], fm.mlp_acts(1, "relu"), (2, 2)),
+}
+FWD_BATCHES = [1, 31, 65, 131_073]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("batch", FWD_BATCHES)
+@pytest.mark.parametrize("name", sorted(FWD_SHAPES))
+def test_fused_forward_routes_match_plain_version(name, batch, cuda_device, full_fp32):
+    widths, acts, routes = FWD_SHAPES[name]
+    ws, bs, x, _, _ = _make_stack(widths, acts, batch, cuda_device)
+    assert fm.forward_plan(widths, acts, batch).routes == routes
+    tol = 1e-4 if any(a[0] == "sine" for a in acts) else 1e-5
+    fm.reset_launches()
+    y = fm.mlp_forward(ws, bs, x, acts)
+    torch.cuda.synchronize()
+    assert fm.LAUNCHES == {"fused_mlp_forward": 1, "fused_mlp_backward": 0}
+    assert y.shape == (batch, widths[-1]) and bool(torch.isfinite(y).all())
+    assert _share(y, fm.mlp_forward_reference(ws, bs, x, acts)) <= tol
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("batch", [4096, 8000, 123_904])
+def test_fused_forward_block_shapes(batch, cuda_device, full_fp32):
+    """The SIREN preset's stack at batches that pick 32-row blocks (a ring of
+    4 weight chunks, then 2) and 64-row blocks, against the plain version."""
+    widths, acts = [3] + [128] * 6 + [1], fm.siren_acts(6, 30.0, 30.0)
+    plan = fm.forward_plan(widths, acts, batch)
+    assert (plan.rows, plan.ring) == {4096: (32, 4), 8000: (32, 2), 123_904: (64, 2)}[batch]
+    ws, bs, x, _, _ = _make_stack(widths, acts, batch, cuda_device)
+    assert _share(fm.mlp_forward(ws, bs, x, acts), fm.mlp_forward_reference(ws, bs, x, acts)) <= 1e-4
+
+
+@pytest.mark.gpu
+def test_relu_masks_come_from_the_fp32_route(cuda_device, full_fp32):
+    """relu_masks' masks are the relu layer's own output > 0 from the fp32
+    route (the z that kernel 6 repeats), bit for bit, at 123,904 rows; an
+    identity layer in its place would take the tensor cores."""
+    widths, acts = [20, 64, 1], fm.mlp_acts(1, "relu")
+    ws, bs, x, _, _ = _make_stack(widths, acts, 123_904, cuda_device)
+    assert fm.forward_plan(widths[:2], acts[:1], 123_904).routes == (fm.ROUTE_FP32,)
+    assert fm.forward_plan(widths[:2], (("id",),), 123_904).routes == (fm.ROUTE_TC,)
+    h = fm.mlp_forward(ws[:1], bs[:1], x, acts[:1])
+    assert torch.equal(fm.relu_masks(ws, bs, x, acts)[0], h > 0)
+    z = fm.mlp_forward_reference(ws[:1], bs[:1], x, (("id",),))
+    assert _share(h, torch.clamp_min(z, 0.0)) <= 1e-5
+
+
+# kernel 1 at L*F in {3, 4, 5, 20, 32}, F in {1, 2, 4, 8}, D = 1-4, ragged N:
+# within 2e-6 of the plain version (of the largest value), and bitwise equal
+# to kernel 3 on the coarse levels
+ENCODE_SHAPES = {
+    "d1_L3_F1": dict(dim=1, n_levels=3, n_features_per_level=1, log2_hashmap_size=8, base_resolution=(4,),
+                     finest_resolution=(200,)),
+    "d2_L4_F1": dict(dim=2, n_levels=4, n_features_per_level=1, log2_hashmap_size=12, base_resolution=8,
+                     finest_resolution=None, per_level_scale=1.6),
+    "d3_L5_F1": dict(dim=3, n_levels=5, n_features_per_level=1, log2_hashmap_size=14, base_resolution=(6, 6, 3),
+                     finest_resolution=(60, 60, 12)),
+    "d2_L10_F2": COARSE_MULTI_FRAME,
+    "d3_L16_F2": OUTSIDE["tcnn"],
+    "d4_L2_F4": dict(dim=4, n_levels=2, n_features_per_level=4, log2_hashmap_size=10, base_resolution=(3, 3, 2, 2),
+                     finest_resolution=(9, 9, 5, 6)),
+    "d2_L4_F8": dict(dim=2, n_levels=4, n_features_per_level=8, log2_hashmap_size=12, base_resolution=8,
+                     finest_resolution=None, per_level_scale=1.6),
+}
+ENCODE_N = [3, 33, 4099, 131_075]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", ENCODE_N)
+@pytest.mark.parametrize("name", sorted(ENCODE_SHAPES))
+def test_encode_forward_shapes(name, n, cuda_device):
+    cfg = ENCODE_SHAPES[name]
+    enc, x, table, _ = _inputs(cfg, n, cuda_device, g_cols=1)
+    x = 2 * x - 1 if n % 2 else x  # odd N: x in [-1, 1], where dense levels clamp and extrapolate
+    he.reset_launches()
+    y = he.hash_encode_forward(enc, table, x)
+    torch.cuda.synchronize()
+    assert he.LAUNCHES == {**ZERO, "hash_encode_forward": 1}
+    ref = he.hash_encode_reference(enc, table, x)
+    assert y.shape == ref.shape and float((y - ref).abs().max()) <= _forward_bound(ref)
+    levels = he.coarse_onehot_levels(enc)
+    if levels and levels == list(range(len(levels))):
+        coarse = he.hash_encode_coarse_forward(enc, table, x)
+        assert torch.equal(y[:, :coarse.shape[1]], coarse)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("f", [2, 4])
+def test_encode_forward_unaligned_table(f, cuda_device):
+    """A table view that starts off 8 or 16 bytes gathers one float at a
+    time, with the same result."""
+    cfg = dict(ENCODE_SHAPES["d2_L4_F8"], n_features_per_level=f)
+    enc, x, table, _ = _inputs(cfg, 4099, cuda_device, g_cols=1)
+    flat = torch.empty(table.numel() + 1, device=cuda_device)
+    shifted = flat[1:].view(table.shape)
+    shifted.copy_(table)
+    assert shifted.data_ptr() % 8 != 0
+    assert torch.equal(he.hash_encode_forward(enc, shifted, x), he.hash_encode_forward(enc, table, x))

@@ -15,6 +15,12 @@ kernel to (``MLP_SHARE`` = 1e-5 of the largest value for relu stacks,
 ``MLP_SINE_SHARE`` = 1e-4 with sine layers). Every layer kind passes, so the
 kernel puts every layer on the tensor cores; the same emulation with plain
 TF32 fails at w0 = 30, which is why the kernel does not use it.
+
+The forward kernel takes the same split on its route 1 (sine, gelu and
+identity layers) and keeps relu layers on fp32 (route 2), as
+``fm.forward_plan`` routes them: ``test_forward_routes_sit_four_times_under_
+the_tolerance`` emulates that mix at every main-path stack, A's grid chunk
+included (4,096 of its 131,072 rows).
 """
 
 import numpy as np
@@ -88,6 +94,11 @@ def stack(name: str, n: int = 384):
     if name == "path_a":  # SIREN preset 3 -> 128 x 6 -> 1, w0 = 30
         ws, bs, acts = _siren_stack(make_siren(3, dim_hidden=128, n_layers=6, device="cpu", seed=1))
         x = coords(3)
+    elif name == "path_a_grid_chunk":  # the SIREN preset on rows of the (352, 352, 30) grid in [-1, 1]
+        ws, bs, acts = _siren_stack(make_siren(3, dim_hidden=128, n_layers=6, device="cpu", seed=1))
+        idx = rng.choice(352 * 352 * 30, n, replace=False)
+        grid = np.stack(np.unravel_index(idx, (352, 352, 30)), axis=-1) / np.array([351.0, 351.0, 29.0])
+        x = torch.from_numpy((2 * grid - 1).astype(np.float32))
     elif name == "siren_352x5":
         ws, bs, acts = _siren_stack(make_siren(3, dim_hidden=352, n_layers=5, device="cpu", seed=1))
         x = coords(3)
@@ -169,3 +180,27 @@ def test_tf32_rounding():
     assert torch.equal(tf32(hi), hi) and torch.equal(tf32(lo), lo)
     assert float(((hi.double() + lo.double() - x.double()).abs() / x.double().abs()).max()) <= 2.0**-21
     assert float(((hi - x).abs() / x.abs()).max()) <= 2.0**-11
+
+
+FORWARD_STACKS = STACKS + ["path_a_grid_chunk"]
+
+
+def forward_routes(ws, bs, x, acts):
+    """The forward kernel's arithmetic: 3xTF32 products on route-1 layers,
+    fp32 products on route-2 layers, by ``fm.forward_plan``."""
+    dims = [ws[0].shape[0]] + [w.shape[1] for w in ws]
+    routes = fm.forward_plan(dims, acts, x.shape[0]).routes
+    h = x
+    for w, b, a, r in zip(ws, bs, acts, routes):
+        h = fm.act_apply(a, (mm_3xtf32 if r == fm.ROUTE_TC else mm_plain)(h, w) + b)
+    return h, routes
+
+
+@pytest.mark.parametrize("name", FORWARD_STACKS)
+def test_forward_routes_sit_four_times_under_the_tolerance(name):
+    ws, bs, x, _, acts = stack(name, n=4096 if name == "path_a_grid_chunk" else 384)
+    got, routes = forward_routes(ws, bs, x, acts)
+    assert all(r == fm.ROUTE_FP32 for a, r in zip(acts, routes) if a[0] == "relu")
+    want = fm.mlp_forward_reference([w.double() for w in ws], [b.double() for b in bs], x.double(), acts)
+    share = float((got.double() - want).abs().max() / want.abs().max())
+    assert share <= tolerance(name) / MARGIN, share
