@@ -20,9 +20,10 @@ Phases, each printed with its time as it ends:
    8-832-3``: route 2 throughout, 32-row blocks, a dot product for N = 3)
    and the multi-frame models' three stacks at one frame; for the
    coarse-level pair, the kernel bench's geometry, the JAX tests' geometry
-   and the multi-frame HashMLP's levels 0-3 at one 352 x 352 frame, with
-   kernels 1 and 2 beside them on the same levels, on the whole multi-frame
-   encoder and on it in raster order; and what one
+   and the multi-frame HashMLP's levels 0-3 at one 352 x 352 frame, x
+   uniform and in raster order, with kernels 1 and 2 beside them on the same
+   levels (times side by side), on the whole multi-frame encoder and on it
+   in raster order; and what one
    multi-frame grid frame launches: kernel 1 at the frame's coordinates,
    kernel 5 on the three stacks at their grid inputs), with times (the
    profiler's device time, or CUDA events over a CUDA graph where it records
@@ -402,11 +403,14 @@ def encoder_rows(torch, he, enc, table, x, g, what: str) -> dict:
 
 def check_coarse_kernels(torch, he, dev):
     """Kernels 3 and 4 against their plain versions on three geometries: the
-    multi-frame HashMLP's levels 0-3 at one 352 x 352 frame (the main row),
-    the kernel bench's and the JAX tests'; ragged N and x in [-1, 1]. Beside
-    the main row, kernels 1 and 2 on the same four levels (the same function:
-    held to kernel 3's output) and on the whole 10-level encoder. Returns
-    per-kernel rows."""
+    multi-frame HashMLP's levels 0-3 at one 352 x 352 frame (the main row;
+    x uniform, then the frame in raster order), the kernel bench's and the
+    JAX tests'; ragged N and x in [-1, 1]. Beside each frame, kernels 1 and 2
+    on the same four levels (the same function: kernel 1 held to kernel 3's
+    output, kernel 2 to kernel 4's within the per-entry bound), with the
+    times side by side, and beside the uniform frame kernels 1-2 on the whole
+    10-level encoder, x uniform and in raster order. Returns per-kernel
+    rows."""
     from mri_interpolation_tpu_torch.bench_kernels import bench_geometry
     from mri_interpolation_tpu_torch.encodings import HashGridEncoding
 
@@ -417,8 +421,11 @@ def check_coarse_kernels(torch, he, dev):
     multi4 = HashGridEncoding(n_levels=4, **geom_multi)  # levels 0-3 of `multi`, alone
     paper = HashGridEncoding(dim=3, n_levels=3, n_features_per_level=2, log2_hashmap_size=11,
                              base_resolution=(3, 3, 2), finest_resolution=(11, 11, 6), growth="paper")
+    xs = torch.linspace(0, 1, FRAME[0])
+    raster = torch.stack(torch.meshgrid(xs, xs, indexing="ij"), dim=-1).reshape(-1, 2)
     cases = [  # (geometry, encoder, N, x's lower end, what)
         ("multi_frame", multi, FRAME[0] * FRAME[1], 0.0, "one 352x352 frame"),
+        ("multi_frame", multi, FRAME[0] * FRAME[1], 0.0, "one 352x352 frame, raster order"),
         ("multi_frame", multi, 517, -1.0, "ragged, x in [-1, 1]"),
         ("bench", bench_geometry(), 65536, 0.0, "bench batch"),
         ("paper", paper, 517, 0.0, "ragged"),
@@ -431,7 +438,7 @@ def check_coarse_kernels(torch, he, dev):
         coarse_rows = sum(int(enc.level_sizes[l]) for l in levels)
         x = torch.rand((n, d), generator=gen) * (1.0 - lo) + lo
         x[0], x[1] = lo, 1.0
-        x = x.to(dev)
+        x = (raster if "raster" in what else x).to(dev)
         table = (torch.rand((enc.total_size, F), generator=gen) * 2 - 1).to(dev)
         g = torch.randn((n, L * F), generator=gen).to(dev)
 
@@ -471,6 +478,7 @@ def check_coarse_kernels(torch, he, dev):
         grow = {"geometry": geom, "n": n, "what": what, "levels": levels, "max_abs_err": err,
                 "largest_bound": float(he.atomic_sum_bound(abs_sum).max()),
                 **kernel_times(call, "hash_encode_coarse_table_grad_kernel"),
+                "plan": he._card_coarse_grad_plan(enc, levels, n, x.device)._asdict(),
                 "plain_ms": time_ms(lambda: he.hash_encode_coarse_table_grad_reference(enc, x, g), iters=5),
                 "bound_ms": gb, "bound_by": gk,
                 "library_ms": kernel_ms(lambda: zeros.index_add_(0, flat_ids, contrib), "")}
@@ -480,28 +488,33 @@ def check_coarse_kernels(torch, he, dev):
             f"  bound {gb:.5f} ms ({gk})")
 
         if geom == "multi_frame" and n == FRAME[0] * FRAME[1]:
-            # kernels 1-2 on the same levels (the same function) and on the whole encoder
+            # kernels 1-2 on the same levels: the same function
             t4 = table[:multi4.total_size]
             same = he.hash_encode_forward(multi4, t4, x)
             same_grad = he.hash_encode_table_grad(multi4, x, g)
             torch.cuda.synchronize()
             e1 = float((same - out).abs().max())
             if e1 > FWD_ATOL:
-                fail(f"kernel 1 on levels 0-3 differs from kernel 3 by {e1}")
+                fail(f"kernel 1 on levels 0-3 ({what}) differs from kernel 3 by {e1}")
             e2 = float(((same_grad - dt[:multi4.total_size]).abs()
                         - he.atomic_sum_bound(abs_sum[:multi4.total_size])).max())
             if e2 > 0.0:
-                fail(f"kernel 2 on levels 0-3 differs from kernel 4 by {e2} over the per-row bound")
-            g_all = torch.randn((n, multi.output_dim), generator=gen).to(dev)
-            xs = torch.linspace(0, 1, FRAME[0])
-            raster = torch.stack(torch.meshgrid(xs, xs, indexing="ij"), dim=-1).reshape(-1, 2).to(dev)
-            for what_b, enc_b, t_b, x_b, g_b in (("levels 0-3", multi4, t4, x, g), ("all 10 levels", multi, table, x, g_all),
-                                                 ("all 10 levels, raster order", multi, table, raster, g_all)):
+                fail(f"kernel 2 on levels 0-3 ({what}) differs from kernel 4 by {e2} over the per-row bound")
+            beside = [("levels 0-3" + (", raster order" if "raster" in what else ""), multi4, t4, x, g)]
+            if "raster" not in what:  # the whole encoder, x uniform and in raster order
+                g_all = torch.randn((n, multi.output_dim), generator=gen).to(dev)
+                beside += [("all 10 levels", multi, table, x, g_all),
+                           ("all 10 levels, raster order", multi, table, raster.to(dev), g_all)]
+            for what_b, enc_b, t_b, x_b, g_b in beside:
                 for name, row in encoder_rows(torch, he, enc_b, t_b, x_b, g_b, what_b).items():
                     rows.setdefault(name, []).append(row)
-            frow["beside"] = {"kernel1_equals_kernel3": bool(torch.equal(same, out))}
-            log(f"  beside, N={n:,d}: kernel 1 on levels 0-3 bitwise equal to kernel 3: "
-                f"{frow['beside']['kernel1_equals_kernel3']}")
+            k1, k2 = rows["hash_encode_forward"][-len(beside)], rows["hash_encode_table_grad"][-len(beside)]
+            frow["beside"] = {"kernel1_equals_kernel3": bool(torch.equal(same, out)), "kernel1_ms": k1["ms"],
+                              "kernel2_ms": k2["ms"]}
+            grow["beside"] = {"kernel2_ms": k2["ms"]}
+            log(f"  beside, N={n:,d} ({what}), levels 0-3: kernel 3 {frow['ms'] * 1e3:.2f} us, kernel 1 "
+                f"{k1['ms'] * 1e3:.2f} us (bitwise equal: {frow['beside']['kernel1_equals_kernel3']}); kernel 4 "
+                f"{grow['ms'] * 1e3:.2f} us, kernel 2 {k2['ms'] * 1e3:.2f} us")
     return rows
 
 

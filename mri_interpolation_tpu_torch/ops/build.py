@@ -13,6 +13,7 @@ The build directory, ``ops/_build/``, is listed in ``.gitignore``.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -23,8 +24,8 @@ from typing import Dict, Optional
 
 import torch
 
-__all__ = ["SOURCES", "BUILD_DIR", "NVCC_FLAGS", "find_nvcc", "compile_sources", "load", "build_logs",
-           "check_tensor"]
+__all__ = ["SOURCES", "BUILD_DIR", "NVCC_FLAGS", "H100_SMS", "find_nvcc", "compile_sources", "load", "build_logs",
+           "sm_count", "check_tensor"]
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
@@ -33,6 +34,9 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+
+# the SMs of an H100 SXM: the kernels' host plans assume it where no card is asked
+H100_SMS = 132
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 _logs: Dict[str, str] = {}
@@ -105,11 +109,16 @@ def load(name: str) -> ctypes.CDLL:
     return lib
 
 
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """The SMs of card ``index`` (what the host plans size their grids by)."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def build_logs() -> Dict[str, str]:
     """``nvcc`` output (with ``-Xptxas -v`` register and spill counts) of the
     sources this process compiled."""
     return dict(_logs)
-
 
 
 def check_tensor(name: str, t: torch.Tensor, shape: tuple, device: torch.device) -> None:

@@ -17,7 +17,7 @@
 // size on hashed levels, plus the level offset), and take the multilinear
 // weighted sum of the F-wide rows. Products and sums are rounded one by one
 // (__fmul_rn / __fadd_rn) in the reference's order, so no FMA contraction
-// moves a weight or the truncation point. All four kernels share corners().
+// moves a weight or the truncation point. All the kernels share corners_at().
 //
 // Design of the all-level forward: a block owns a run of 128 (or 64) points
 // over all levels. Per-level constants and the points' coordinates are
@@ -39,9 +39,8 @@
 //     levels whose rows fit a block's accumulator (at most 113.5 KB, so two
 //     blocks share an SM) and whose rows take at least 256 updates each on
 //     average (N * 2^D / rows): about as many as the kernel has blocks, so
-//     its flush adds no more global atomics than it removes. The structure
-//     of the coarse gradient below: a grid of at most two blocks per SM walks
-//     the points, adds g*w into a shared-memory copy of the levels' rows with
+//     its flush adds no more global atomics than it removes. A grid of at
+//     most two blocks per SM walks the points, adds g*w into a shared-memory copy of the levels' rows with
 //     shared atomics, then adds each nonzero (row, feature) once into the
 //     fused gradient. A coarse level's few hundred rows take thousands of
 //     updates each, which global atomics serialise in L2;
@@ -62,18 +61,23 @@
 // Design of the coarse pair: the TPU kernels turn each row lookup into a
 // one-hot(idx) x table matmul over a copy of the coarse levels packed in
 // 128-row segments, because Mosaic cannot lower a vector gather; a Hopper
-// block gathers, so neither the one-hot nor the padding is carried over.
-// A grid of at most two blocks per SM walks the points (grid-stride). Each
-// block stages the coarse levels' rows, unpadded and level after level, in
-// dynamic shared memory with coalesced loads; the forward then gathers the
-// 2^D corners of each point from there. The gradient keeps a shared-memory
-// accumulator of the same rows, adds g*w into it with shared-memory atomics,
-// and at the end adds each nonzero (row, feature) once into the fused (T, F)
-// gradient with one global fp32 atomicAdd: a row takes at most one global
-// atomic per block, not one per point as in the all-level kernel. Where the
-// coarse levels together exceed the block's shared memory (227 KB opt-in),
-// they are staged in groups of whole levels, one group after another; a
-// level that alone exceeds it is refused before launch.
+// thread gathers, so neither the one-hot nor the padding is carried over.
+// The forward (kernel 3) is one thread a point over every coarse level: the
+// coordinates loaded once, the corner rows gathered through the read-only
+// path from the fused table (the coarse rows, a few KB, stay in L1 and L2:
+// no staging copy and no barrier), the point's L*F outputs written 16 bytes
+// at a time. The gradient (kernel 4) keeps a shared-memory accumulator of
+// the coarse rows per block, after a host plan
+// (ops/hash_encode.py:coarse_grad_plan, passed as a CoarsePlan: grid,
+// cluster size, groups of levels). Shared fp32 atomicAdd is a compare-and-swap
+// loop on this card (ATOMS.CAST.SPIN), so lanes of a warp that would retry on
+// one row instead sum their terms by shuffles and make one shared add;
+// after the points, the blocks of a thread-block cluster add up their
+// accumulators through distributed shared memory, each block one slice, and
+// each entry takes one global atomic per cluster. Where the coarse levels
+// together exceed a block's shared memory (227 KB opt-in), they are taken in
+// groups of whole levels, one group after another; a level that alone
+// exceeds it is refused before launch.
 //
 // What bounds them on this card: all four move few bytes per point (D+L*F
 // floats in, L*F out for the forward; D+L*F in for the gradient) and do 2^D
@@ -85,24 +89,28 @@
 // Interface: plain C, raw pointers, the caller's stream; every launcher
 // returns cudaGetLastError() so the Python wrapper raises on a refused launch.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 #include <string.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int kMaxDim = 4;
 constexpr int kMaxFeatures = 8;
 constexpr int kMaxLevels = 64;
+constexpr int kMaxCluster = 8;  // blocks a thread-block cluster (the portable limit)
 constexpr int kThreads = 256;
+constexpr int kCoarseForwardThreads = 256;  // kernel 3's blocks (64 and 128 were no faster on the card)
 constexpr int kDefaultSharedBytes = 48 * 1024;  // dynamic shared memory without the opt-in
 constexpr int kMaxSharedBytes = 232448;         // Hopper's opt-in limit per block (227 KB)
 // int32 words per level in the host constant block (encodings/hashgrid.py
 // LEVEL_CONST_WIDTH): res[4], vertex strides[4], size, offset, dense, source.
 constexpr int kLevelWords = 12;
-// Blocks per SM of the coarse kernels' and the private table gradient's
-// grid-stride grids.
-constexpr int kCoarseBlocksPerSM = 2;
+// Blocks per SM of the private table gradient's grid-stride grid.
+constexpr int kPrivateBlocksPerSM = 2;
 
 struct Level {
   int res[kMaxDim];
@@ -421,99 +429,304 @@ hash_encode_table_grad_private_kernel(const float* __restrict__ x, const float* 
   }
 }
 
-// Levels [j0, j1) of the coarse block: the longest run from j0 whose rows fit
-// `budget` floats of shared memory (at least level j0: the host refuses a
-// level that alone does not fit). Their packed rows are contiguous, from
-// levels.lv[j0].offset on.
-__device__ __forceinline__ int coarse_group_end(const Levels& levels, int n_levels, int j0,
-                                                int n_features, int budget) {
-  int j1 = j0, used = 0;
-  while (j1 < n_levels && used + (int)levels.lv[j1].size * n_features <= budget) {
-    used += (int)levels.lv[j1].size * n_features;
-    ++j1;
+// Kernel 3: one thread a point. Its coordinates are loaded once into
+// registers for every coarse level; its 2^D corner rows are gathered through
+// the read-only path from the fused table, which the coarse levels' few KB
+// of rows keep resident in L1 and L2 (no staging copy, no barrier); the
+// sums keep kernel 1's order, so the two agree bit for bit. F = 0: the
+// feature count at run time, scalar gathers and stores. Otherwise, where the
+// rows lie on 4F bytes (vec_rows), each row is gathered as float4 or float2
+// loads; where a point's L*F outputs start on 16 bytes (wide: L*F a
+// multiple of 4 and out aligned), they are written 16 bytes at a time,
+// 4 / F levels (F < 4) or one level (F >= 4) a store group, and the levels
+// past the last whole group as scalars.
+template <int D, int F>
+__device__ __forceinline__ void coarse_features(const float (&xv)[D], const Level& lv,
+                                                const float* __restrict__ table, bool vec_rows, float* v) {
+  int rows[1 << D];
+  float w[1 << D];
+  corners_at<D>(xv, lv, rows, w);
+  const int shift = lv.source - lv.offset;  // packed row -> fused row
+#pragma unroll
+  for (int c = 0; c < (1 << D); ++c) {
+    const float* src = table + (int64_t)(rows[c] + shift) * F;
+    float t[F];
+    if constexpr (F % 4 == 0) {
+      if (vec_rows) {
+#pragma unroll
+        for (int q = 0; q < F; q += 4) {
+          const float4 u = __ldg(reinterpret_cast<const float4*>(src + q));
+          t[q] = u.x; t[q + 1] = u.y; t[q + 2] = u.z; t[q + 3] = u.w;
+        }
+      } else {
+#pragma unroll
+        for (int q = 0; q < F; ++q) t[q] = __ldg(src + q);
+      }
+    } else if constexpr (F % 2 == 0) {
+      if (vec_rows) {
+#pragma unroll
+        for (int q = 0; q < F; q += 2) {
+          const float2 u = __ldg(reinterpret_cast<const float2*>(src + q));
+          t[q] = u.x; t[q + 1] = u.y;
+        }
+      } else {
+#pragma unroll
+        for (int q = 0; q < F; ++q) t[q] = __ldg(src + q);
+      }
+    } else {
+#pragma unroll
+      for (int q = 0; q < F; ++q) t[q] = __ldg(src + q);
+    }
+#pragma unroll
+    for (int q = 0; q < F; ++q) v[q] = (c == 0) ? __fmul_rn(t[q], w[c]) : __fadd_rn(v[q], __fmul_rn(t[q], w[c]));
   }
-  return j1;
 }
 
-template <int D>
-__global__ void __launch_bounds__(kThreads)
+template <int D, int F>
+__global__ void __launch_bounds__(kCoarseForwardThreads)
 hash_encode_coarse_forward_kernel(const float* __restrict__ x, const float* __restrict__ table,
-                                  float* __restrict__ out, int64_t n, int n_features, int n_levels,
-                                  int budget, const __grid_constant__ Levels levels) {
-  extern __shared__ float rows_s[];
-  const int width = n_levels * n_features;
-  for (int j0 = 0; j0 < n_levels;) {
-    const int j1 = coarse_group_end(levels, n_levels, j0, n_features, budget);
-    const int base = levels.lv[j0].offset;
-    for (int j = j0; j < j1; ++j) {  // stage the group's rows, coalesced
-      const Level& lv = levels.lv[j];
-      const float* src = table + (int64_t)lv.source * n_features;
-      float* dst = rows_s + (lv.offset - base) * n_features;
-      for (int k = threadIdx.x; k < (int)lv.size * n_features; k += blockDim.x) dst[k] = __ldg(src + k);
-    }
-    __syncthreads();
-    for (int64_t i = (int64_t)blockIdx.x * kThreads + threadIdx.x; i < n;
-         i += (int64_t)gridDim.x * kThreads) {
-      for (int j = j0; j < j1; ++j) {
-        int rows[1 << D];
-        float w[1 << D];
-        corners<D>(x + i * D, levels.lv[j], rows, w);
-        float* o = out + i * (int64_t)width + (int64_t)j * n_features;
-        for (int f = 0; f < n_features; ++f) {
-          float acc = 0.f;
+                                  float* __restrict__ out, int64_t n, int n_features, int n_levels, bool vec_rows,
+                                  bool wide, const __grid_constant__ Levels levels) {
+  const int64_t i = (int64_t)blockIdx.x * kCoarseForwardThreads + threadIdx.x;
+  if (i >= n) return;
+  float xv[D];
 #pragma unroll
-          for (int c = 0; c < (1 << D); ++c) {
-            const float t = rows_s[(rows[c] - base) * n_features + f];
-            acc = (c == 0) ? __fmul_rn(t, w[c]) : __fadd_rn(acc, __fmul_rn(t, w[c]));
-          }
-          o[f] = acc;
+  for (int k = 0; k < D; ++k) xv[k] = __ldg(x + i * D + k);
+  if constexpr (F == 0) {
+    float* o = out + i * (int64_t)(n_levels * n_features);
+    for (int j = 0; j < n_levels; ++j) {
+      const Level& lv = levels.lv[j];
+      int rows[1 << D];
+      float w[1 << D];
+      corners_at<D>(xv, lv, rows, w);
+      const float* src = table + (int64_t)(lv.source - lv.offset) * n_features;
+      for (int f = 0; f < n_features; ++f) {
+        float acc = 0.f;
+#pragma unroll
+        for (int c = 0; c < (1 << D); ++c) {
+          const float t = __ldg(src + (int64_t)rows[c] * n_features + f);
+          acc = (c == 0) ? __fmul_rn(t, w[c]) : __fadd_rn(acc, __fmul_rn(t, w[c]));
         }
+        o[j * n_features + f] = acc;
       }
     }
-    __syncthreads();  // the next group restages the same shared memory
-    j0 = j1;
+  } else {
+    constexpr int G = F >= 4 ? 1 : 4 / F;  // levels a store group: 4 or 8 floats
+    float* o = out + i * (int64_t)(n_levels * F);
+    int j = 0;
+    if (wide) {
+      for (; j + G <= n_levels; j += G) {
+        float v[G * F];
+#pragma unroll
+        for (int u = 0; u < G; ++u) coarse_features<D, F>(xv, levels.lv[j + u], table, vec_rows, v + u * F);
+#pragma unroll
+        for (int q = 0; q < G * F; q += 4)
+          *reinterpret_cast<float4*>(o + j * F + q) = make_float4(v[q], v[q + 1], v[q + 2], v[q + 3]);
+      }
+    }
+    for (; j < n_levels; ++j) {
+      float v[F];
+      coarse_features<D, F>(xv, levels.lv[j], table, vec_rows, v);
+#pragma unroll
+      for (int q = 0; q < F; ++q) o[j * F + q] = v[q];
+    }
   }
 }
 
-template <int D>
+// The coarse table gradient's plan (ops/hash_encode.py:coarse_grad_plan;
+// host words: grid, cluster, copies, shared_bytes, n_groups, then the end
+// level of each group of levels that the accumulators take at once).
+struct CoarsePlan {
+  int grid;
+  int cluster;        // blocks a thread-block cluster: 1, 2, 4 or 8
+  int copies;         // accumulators a block: 1 (shared atomics) or one a warp (plain adds)
+  int shared_floats;  // a block's accumulators
+  int n_groups;
+  int group_end[kMaxLevels];
+};
+
+// The lanes of a warp that share a key (a dense level's cell: the same cell
+// gives the same row for every corner, another cell another row) and the
+// pointers of a pairwise tree over each group in lane order: rank r takes
+// rank r + 2^k's partial at step k where r % 2^(k+1) == 0. next[k] is the
+// lane of rank + 2^k (32: none), for the steps the widest group needs (none
+// where every key differs). Every lane of the warp calls it.
+struct WarpGroups {
+  int rank;
+  int steps;
+  int next[5];
+};
+
+__device__ __forceinline__ WarpGroups warp_groups(int key, int lane) {
+  WarpGroups wg;
+  const unsigned peers = __match_any_sync(0xffffffffu, key);
+  wg.rank = __popc(peers & ((1u << lane) - 1u));
+  const int widest = (int)__reduce_max_sync(0xffffffffu, (unsigned)__popc(peers));
+  wg.steps = 32 - __clz(widest - 1);  // ceil(log2(widest))
+  const unsigned above = lane == 31 ? 0u : peers & (0xffffffffu << (lane + 1));
+  int next = above ? __ffs(above) - 1 : 32;
+#pragma unroll
+  for (int k = 0; k < 5; ++k) {
+    wg.next[k] = next;
+    if (k + 1 < wg.steps) {  // warp-uniform
+      const int further = __shfl_sync(0xffffffffu, next, next & 31);
+      next = next < 32 ? further : 32;
+    }
+  }
+  return wg;
+}
+
+// Sums the V terms v of each group of wg along its tree; returns true on
+// each group's lowest lane, whose v then holds the group's sum.
+template <int V>
+__device__ __forceinline__ bool warp_tree_sum(const WarpGroups& wg, float* v) {
+#pragma unroll
+  for (int k = 0; k < 5; ++k) {
+    if (k < wg.steps) {  // warp-uniform
+      const int src = wg.next[k] & 31;
+      float t[V];
+#pragma unroll
+      for (int q = 0; q < V; ++q) t[q] = __shfl_sync(0xffffffffu, v[q], src);
+      if ((wg.rank & ((2 << k) - 1)) == 0 && wg.next[k] < 32) {
+#pragma unroll
+        for (int q = 0; q < V; ++q) v[q] = __fadd_rn(v[q], t[q]);
+      }
+    }
+  }
+  return wg.rank == 0;
+}
+
+// Kernel 4: a grid-stride walk over the points in warps of 32 consecutive
+// points, one group of coarse levels at a time (the plan's groups; one group
+// unless the levels pass the accumulator). Each block zeroes its
+// shared-memory accumulator of the group's rows; for each (point, level,
+// corner) a lane forms the F terms g*w (__fmul_rn), the lanes of a warp in
+// the same cell of the level (warp_groups, once per level) sum theirs for
+// each corner (warp_tree_sum) and the group's lowest lane adds the sum with
+// one shared atomic per feature. Where the plan gives each warp its own copy
+// of the accumulator (small levels: the copies fit 48 KB), the leader adds
+// with a plain read and write instead (a warp's leaders hit distinct rows,
+// and no other warp touches the copy), and the block sums its copies in
+// warp order before the flush. Then the blocks of a cluster meet
+// (cluster.sync), block r sums slice r of each level's entries over the
+// cluster's accumulators in rank order (distributed shared memory, every
+// rank's loads issued before the sums) and adds each nonzero sum to the
+// fused gradient with one global atomic (float4 or float2 where F allows;
+// dtable lies on 16 bytes): each entry takes one global atomic per cluster,
+// not one per block, and the flush is spread over the cluster. A second
+// cluster.sync keeps every accumulator alive until the cluster has read it.
+// F = 0: the feature count at run time.
+template <int D, int F>
 __global__ void __launch_bounds__(kThreads)
 hash_encode_coarse_table_grad_kernel(const float* __restrict__ x, const float* __restrict__ g,
-                                     float* __restrict__ dtable, int64_t n, int n_features,
-                                     int n_levels, int budget, const __grid_constant__ Levels levels) {
-  extern __shared__ float acc_s[];
-  const int width = n_levels * n_features;
-  for (int j0 = 0; j0 < n_levels;) {
-    const int j1 = coarse_group_end(levels, n_levels, j0, n_features, budget);
+                                     float* __restrict__ dtable, int64_t n, int n_features, int n_levels,
+                                     const __grid_constant__ Levels levels,
+                                     const __grid_constant__ CoarsePlan plan) {
+  constexpr int VF = F > 0 ? F : kMaxFeatures;
+  constexpr int VW = F % 4 == 0 && F > 0 ? 4 : F % 2 == 0 && F > 0 ? 2 : 1;  // the flush's vector width
+  extern __shared__ float4 acc4[];
+  float* acc_s = reinterpret_cast<float*>(acc4);
+  cg::cluster_group cluster = cg::this_cluster();
+  const int nf = F > 0 ? F : n_features;
+  const int width = n_levels * nf;
+  const int lane = threadIdx.x & 31;
+  const int csize = (int)cluster.num_blocks(), crank = (int)cluster.block_rank();
+  const int64_t stride = (int64_t)gridDim.x * kThreads;
+  const bool per_warp = plan.copies > 1;
+  int j0 = 0;
+  for (int grp = 0; grp < plan.n_groups; ++grp) {
+    const int j1 = plan.group_end[grp];
     const int base = levels.lv[j0].offset;
-    const int used = (levels.lv[j1 - 1].offset + (int)levels.lv[j1 - 1].size - base) * n_features;
-    for (int k = threadIdx.x; k < used; k += blockDim.x) acc_s[k] = 0.f;
+    const int used = (levels.lv[j1 - 1].offset + (int)levels.lv[j1 - 1].size - base) * nf;
+    for (int k = threadIdx.x; k < used * plan.copies; k += kThreads) acc_s[k] = 0.f;
     __syncthreads();
-    for (int64_t i = (int64_t)blockIdx.x * kThreads + threadIdx.x; i < n;
-         i += (int64_t)gridDim.x * kThreads) {
+    float* acc = acc_s + (per_warp ? (threadIdx.x >> 5) * used : 0);
+    for (int64_t p0 = (int64_t)blockIdx.x * kThreads + (threadIdx.x & ~31); p0 < n; p0 += stride) {
+      const int64_t i = p0 + lane;
+      const bool live = i < n;
+      float xv[D];
+#pragma unroll
+      for (int k = 0; k < D; ++k) xv[k] = live ? __ldg(x + i * D + k) : 0.f;
+      float gn[VF];  // the next level's cotangents, loaded a level ahead
+#pragma unroll
+      for (int q = 0; q < VF; ++q) gn[q] = (live && q < nf) ? __ldg(g + i * width + j0 * nf + q) : 0.f;
       for (int j = j0; j < j1; ++j) {
+        float gv[VF];
+#pragma unroll
+        for (int q = 0; q < VF; ++q) {
+          gv[q] = gn[q];
+          gn[q] = (live && q < nf && j + 1 < j1) ? __ldg(g + i * width + (j + 1) * nf + q) : 0.f;
+        }
         int rows[1 << D];
         float w[1 << D];
-        corners<D>(x + i * D, levels.lv[j], rows, w);
-        const float* gp = g + i * (int64_t)width + (int64_t)j * n_features;
-        for (int f = 0; f < n_features; ++f) {
-          const float gf = __ldg(gp + f);
+        corners_at<D>(xv, levels.lv[j], rows, w);
+        const WarpGroups wg = warp_groups(live ? rows[0] : -1 - lane, lane);  // a dead lane's key is its own
 #pragma unroll
-          for (int c = 0; c < (1 << D); ++c)
-            atomicAdd(acc_s + (rows[c] - base) * n_features + f, __fmul_rn(gf, w[c]));
+        for (int c = 0; c < (1 << D); ++c) {
+          float v[VF];
+#pragma unroll
+          for (int q = 0; q < VF; ++q) v[q] = __fmul_rn(gv[q], w[c]);
+          if (warp_tree_sum<VF>(wg, v) && live) {
+            float* a = acc + (rows[c] - base) * nf;
+            if (per_warp) {  // the warp's own copy, and one leader a row: no atomic
+#pragma unroll
+              for (int q = 0; q < VF; ++q)
+                if (q < nf) a[q] = __fadd_rn(a[q], v[q]);
+            } else {
+#pragma unroll
+              for (int q = 0; q < VF; ++q)
+                if (q < nf) atomicAdd(a + q, v[q]);
+            }
+          }
+          if (per_warp) __syncwarp();  // the next corner's leaders may read these rows
         }
       }
     }
-    __syncthreads();
-    for (int j = j0; j < j1; ++j) {  // one global atomic per nonzero (row, feature)
-      const Level& lv = levels.lv[j];
-      const float* src = acc_s + (lv.offset - base) * n_features;
-      float* dst = dtable + (int64_t)lv.source * n_features;
-      for (int k = threadIdx.x; k < (int)lv.size * n_features; k += blockDim.x) {
-        const float v = src[k];
-        if (v != 0.f) atomicAdd(dst + k, v);
+    if (per_warp) {  // the warps' copies into the first, in warp order
+      __syncthreads();
+      for (int k = threadIdx.x; k < used; k += kThreads) {
+        float sum = acc_s[k];
+        for (int w = 1; w < plan.copies; ++w) sum = __fadd_rn(sum, acc_s[w * used + k]);
+        acc_s[k] = sum;
       }
     }
-    __syncthreads();  // the next group rezeroes the same shared memory
+    cluster.sync();
+    for (int j = j0; j < j1; ++j) {
+      const Level& lv = levels.lv[j];
+      const int len = (int)lv.size * nf, first = (lv.offset - base) * nf;
+      const int chunk = ((len + csize - 1) / csize + VW - 1) / VW * VW;
+      const int s0 = min(len, crank * chunk), s1 = min(len, s0 + chunk);
+      float* dst = dtable + (int64_t)lv.source * nf;
+      for (int k = s0 + threadIdx.x * VW; k < s1; k += kThreads * VW) {
+        float part[kMaxCluster][VW];  // every rank's entries loaded before any is added
+#pragma unroll
+        for (int r = 0; r < kMaxCluster; ++r) {
+          if (r >= csize) break;
+          const float* src = cluster.map_shared_rank(acc_s, r) + first + k;
+          if constexpr (VW == 4) {
+            const float4 u = *reinterpret_cast<const float4*>(src);
+            part[r][0] = u.x; part[r][1] = u.y; part[r][2] = u.z; part[r][3] = u.w;
+          } else if constexpr (VW == 2) {
+            const float2 u = *reinterpret_cast<const float2*>(src);
+            part[r][0] = u.x; part[r][1] = u.y;
+          } else {
+            part[r][0] = *src;
+          }
+        }
+        float sum[VW];
+        bool nonzero = false;
+#pragma unroll
+        for (int q = 0; q < VW; ++q) {
+          sum[q] = 0.f;
+#pragma unroll
+          for (int r = 0; r < kMaxCluster; ++r)
+            if (r < csize) sum[q] = __fadd_rn(sum[q], part[r][q]);
+          nonzero = nonzero || sum[q] != 0.f;
+        }
+        if (nonzero) atomic_add_vec<VW>(dst + k, sum);
+      }
+    }
+    cluster.sync();  // the cluster has read every accumulator: the next group may rezero them
     j0 = j1;
   }
 }
@@ -591,51 +804,122 @@ struct TableGradPrivateLaunch {
 
 template <int D>
 struct CoarseForwardLaunch {
-  static void run(dim3 grid, int smem, cudaStream_t stream, const float* x, const float* table,
-                  float* out, int64_t n, int n_features, int n_levels, const Levels& lv) {
-    if (smem > kDefaultSharedBytes)
-      cudaFuncSetAttribute(hash_encode_coarse_forward_kernel<D>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    hash_encode_coarse_forward_kernel<D><<<grid, kThreads, smem, stream>>>(
-        x, table, out, n, n_features, n_levels, smem / (int)sizeof(float), lv);
+  template <int F>
+  static void go(cudaStream_t stream, const float* x, const float* table, float* out, int64_t n, int n_features,
+                 int n_levels, bool vec_rows, bool wide, const Levels& lv) {
+    const unsigned blocks = (unsigned)((n + kCoarseForwardThreads - 1) / kCoarseForwardThreads);
+    hash_encode_coarse_forward_kernel<D, F><<<blocks, kCoarseForwardThreads, 0, stream>>>(
+        x, table, out, n, n_features, n_levels, vec_rows, wide, lv);
+  }
+  static void run(cudaStream_t stream, const float* x, const float* table, float* out, int64_t n, int n_features,
+                  int n_levels, const Levels& lv) {
+    const bool vec_rows = ((uintptr_t)table & (n_features % 4 == 0 ? 15 : 7)) == 0;
+    const bool wide = (n_levels * n_features) % 4 == 0 && ((uintptr_t)out & 15) == 0;
+    switch (n_features) {
+      case 1: go<1>(stream, x, table, out, n, n_features, n_levels, vec_rows, wide, lv); break;
+      case 2: go<2>(stream, x, table, out, n, n_features, n_levels, vec_rows, wide, lv); break;
+      case 4: go<4>(stream, x, table, out, n, n_features, n_levels, vec_rows, wide, lv); break;
+      case 8: go<8>(stream, x, table, out, n, n_features, n_levels, vec_rows, wide, lv); break;
+      default: go<0>(stream, x, table, out, n, n_features, n_levels, vec_rows, wide, lv);
+    }
   }
 };
 
+// The cluster launch of kernel 4 at the plan's grid, cluster and shared
+// memory; its error is the call's (a refused launch never runs).
 template <int D>
 struct CoarseTableGradLaunch {
-  static void run(dim3 grid, int smem, cudaStream_t stream, const float* x, const float* g,
-                  float* dtable, int64_t n, int n_features, int n_levels, const Levels& lv) {
-    if (smem > kDefaultSharedBytes)
-      cudaFuncSetAttribute(hash_encode_coarse_table_grad_kernel<D>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    hash_encode_coarse_table_grad_kernel<D><<<grid, kThreads, smem, stream>>>(
-        x, g, dtable, n, n_features, n_levels, smem / (int)sizeof(float), lv);
+  template <int F>
+  static cudaError_t go(cudaStream_t stream, const float* x, const float* g, float* dtable, int64_t n,
+                        int n_features, int n_levels, const Levels& lv, const CoarsePlan& plan) {
+    void (*kernel)(const float*, const float*, float*, int64_t, int, int, const Levels, const CoarsePlan) =
+        hash_encode_coarse_table_grad_kernel<D, F>;
+    const int smem = plan.shared_floats * (int)sizeof(float);
+    if (smem > kDefaultSharedBytes) {
+      const cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      if (err != cudaSuccess) return err;
+    }
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = (unsigned)plan.cluster;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cudaLaunchConfig_t config = {};
+    config.gridDim = dim3((unsigned)plan.grid);
+    config.blockDim = dim3(kThreads);
+    config.dynamicSmemBytes = (size_t)smem;
+    config.stream = stream;
+    config.attrs = attr;
+    config.numAttrs = 1;
+    return cudaLaunchKernelEx(&config, kernel, x, g, dtable, n, n_features, n_levels, lv, plan);
+  }
+  static cudaError_t run(cudaStream_t stream, const float* x, const float* g, float* dtable, int64_t n,
+                         int n_features, int n_levels, const Levels& lv, const CoarsePlan& plan) {
+    switch (n_features) {
+      case 1: return go<1>(stream, x, g, dtable, n, n_features, n_levels, lv, plan);
+      case 2: return go<2>(stream, x, g, dtable, n, n_features, n_levels, lv, plan);
+      case 4: return go<4>(stream, x, g, dtable, n, n_features, n_levels, lv, plan);
+      case 8: return go<8>(stream, x, g, dtable, n, n_features, n_levels, lv, plan);
+      default: return go<0>(stream, x, g, dtable, n, n_features, n_levels, lv, plan);
+    }
   }
 };
 
-// Grid and shared memory of a coarse launch on the current device: at most
-// kCoarseBlocksPerSM blocks per SM, and room for every coarse row or, where
-// they do not fit the opt-in limit, for the largest group. Refuses a level
-// that alone does not fit, and a level that is not dense.
-cudaError_t coarse_shape(int64_t n, int n_features, int n_levels, const Levels& levels,
-                         dim3* grid, int* smem) {
-  int dev = 0, sms = 0, optin = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (err != cudaSuccess) return err;
-  int64_t total = 0;
-  for (int j = 0; j < n_levels; ++j) {
-    const int64_t bytes = (int64_t)levels.lv[j].size * n_features * (int64_t)sizeof(float);
-    if (!levels.lv[j].dense || bytes > optin) return cudaErrorInvalidValue;
-    total += bytes;
+// Launch<d>::run(args...)'s own error, else cudaGetLastError().
+template <template <int> class Launch, typename... Args>
+cudaError_t dispatch_dim_checked(int d, Args... args) {
+  cudaError_t err;
+  switch (d) {
+    case 1: err = Launch<1>::run(args...); break;
+    case 2: err = Launch<2>::run(args...); break;
+    case 3: err = Launch<3>::run(args...); break;
+    case 4: err = Launch<4>::run(args...); break;
+    default: return cudaErrorInvalidValue;
   }
-  *smem = (int)(total < optin ? total : optin);
-  const int64_t blocks = (n + kThreads - 1) / kThreads;
-  const int64_t cap = (int64_t)kCoarseBlocksPerSM * sms;
-  *grid = dim3((unsigned)(blocks < cap ? blocks : cap));
+  return err != cudaSuccess ? err : cudaGetLastError();
+}
+
+// The coarse levels as kernels 3-4 take them: dense, packed one after
+// another from row 0 (word 9), with their rows in the fused table (word 11).
+cudaError_t check_coarse_levels(int n_levels, const Levels& levels) {
+  int next = 0;
+  for (int j = 0; j < n_levels; ++j) {
+    const Level& lv = levels.lv[j];
+    if (!lv.dense || lv.offset != next || lv.source < 0 || lv.size < 1) return cudaErrorInvalidValue;
+    next += (int)lv.size;
+  }
   return cudaSuccess;
+}
+
+// Unpacks and validates kernel 4's plan words against the levels: a grid of
+// whole clusters of 1, 2, 4 or 8 blocks, one accumulator a block or one a
+// warp, shared memory within the opt-in limit, and groups of consecutive
+// levels that end at the last level and each fit the accumulators.
+cudaError_t unpack_coarse_plan(int n_features, int n_levels, const Levels& levels, const int32_t* words,
+                               CoarsePlan* plan) {
+  if (words == nullptr) return cudaErrorInvalidValue;
+  memset(plan, 0, sizeof(CoarsePlan));
+  plan->grid = words[0];
+  plan->cluster = words[1];
+  plan->copies = words[2];
+  const int shared_bytes = words[3];
+  plan->shared_floats = shared_bytes / (int)sizeof(float);
+  plan->n_groups = words[4];
+  const int c = plan->cluster;
+  if (plan->grid < 1 || c < 1 || c > kMaxCluster || (c & (c - 1)) != 0 || plan->grid % c != 0 ||
+      (plan->copies != 1 && plan->copies != kThreads / 32) || shared_bytes < 1 || shared_bytes > kMaxSharedBytes ||
+      plan->n_groups < 1 || plan->n_groups > n_levels)
+    return cudaErrorInvalidValue;
+  int j0 = 0;
+  for (int k = 0; k < plan->n_groups; ++k) {
+    const int j1 = words[5 + k];
+    if (j1 <= j0 || j1 > n_levels) return cudaErrorInvalidValue;
+    const int64_t rows = (int64_t)levels.lv[j1 - 1].offset + levels.lv[j1 - 1].size - levels.lv[j0].offset;
+    if (rows * n_features * plan->copies > plan->shared_floats) return cudaErrorInvalidValue;
+    plan->group_end[k] = j1;
+    j0 = j1;
+  }
+  return j0 == n_levels ? cudaSuccess : cudaErrorInvalidValue;
 }
 
 // Unpacks and validates the host plan words against the levels.
@@ -731,7 +1015,7 @@ int hash_encode_table_grad(const float* x, const float* g, float* dtable, int64_
     err = cudaGetDevice(&dev);
     if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (err != cudaSuccess) return (int)err;
-    const int64_t blocks = (n + kThreads - 1) / kThreads, cap = (int64_t)kCoarseBlocksPerSM * sms;
+    const int64_t blocks = (n + kThreads - 1) / kThreads, cap = (int64_t)kPrivateBlocksPerSM * sms;
     const dim3 grid((unsigned)(blocks < cap ? blocks : cap));
     err = dispatch_dim<TableGradPrivateLaunch>(d, grid, plan.shared_floats * (int)sizeof(float), s, x, g,
                                                dtable, n, n_features, n_levels, levels, plan);
@@ -755,34 +1039,34 @@ int hash_encode_coarse_forward(const float* x, const float* table, float* out, i
                                void* stream) {
   Levels levels;
   cudaError_t err = pack_levels(d, n_features, n_levels, level_consts, &levels);
+  if (err == cudaSuccess) err = check_coarse_levels(n_levels, levels);
   if (err != cudaSuccess) return (int)err;
   if (n <= 0) return (int)cudaSuccess;
-  dim3 grid;
-  int smem = 0;
-  err = coarse_shape(n, n_features, n_levels, levels, &grid, &smem);
-  if (err != cudaSuccess) return (int)err;
-  return (int)dispatch_dim<CoarseForwardLaunch>(d, grid, smem, (cudaStream_t)stream, x, table, out,
-                                                n, n_features, n_levels, levels);
+  return (int)dispatch_dim<CoarseForwardLaunch>(d, (cudaStream_t)stream, x, table, out, n, n_features, n_levels,
+                                                levels);
 }
 
 // dtable[source_j + r, f] += sum over points of g[n, j*F + f] * w(n, level j, c)
-// for the corners c that fall on row r of coarse level j: shared-memory
-// atomics per block, then one global fp32 atomicAdd per nonzero (row, feature)
-// and block. dtable is the fused (T, F) gradient, zeroed by the caller; rows
-// outside the coarse levels are not touched. Constants as above.
+// for the corners c that fall on row r of coarse level j, after `plan`
+// (host pointer to 5 + n_groups int32 words; see CoarsePlan): per block, a
+// shared-memory accumulator filled by warp sums and shared atomics, or one
+// per warp filled by warp sums and plain adds; per cluster, one global
+// atomic per nonzero (row, feature). dtable is the fused
+// (T, F) gradient, zeroed by the caller; rows outside the coarse levels are
+// not touched. Constants as above.
 int hash_encode_coarse_table_grad(const float* x, const float* g, float* dtable, int64_t n, int d,
                                   int n_features, int n_levels, const int32_t* level_consts,
-                                  void* stream) {
+                                  const int32_t* plan_words, void* stream) {
   Levels levels;
   cudaError_t err = pack_levels(d, n_features, n_levels, level_consts, &levels);
+  if (err == cudaSuccess) err = check_coarse_levels(n_levels, levels);
+  CoarsePlan plan;
+  if (err == cudaSuccess) err = unpack_coarse_plan(n_features, n_levels, levels, plan_words, &plan);
   if (err != cudaSuccess) return (int)err;
   if (n <= 0) return (int)cudaSuccess;
-  dim3 grid;
-  int smem = 0;
-  err = coarse_shape(n, n_features, n_levels, levels, &grid, &smem);
-  if (err != cudaSuccess) return (int)err;
-  return (int)dispatch_dim<CoarseTableGradLaunch>(d, grid, smem, (cudaStream_t)stream, x, g, dtable,
-                                                  n, n_features, n_levels, levels);
+  if (((uintptr_t)dtable & 15) != 0) return (int)cudaErrorInvalidValue;  // the flush's vector atomics
+  return (int)dispatch_dim_checked<CoarseTableGradLaunch>(d, (cudaStream_t)stream, x, g, dtable, n, n_features,
+                                                          n_levels, levels, plan);
 }
 
 const char* hash_encode_error_string(int code) {

@@ -37,6 +37,7 @@ from typing import List, NamedTuple, Optional, Sequence, Tuple
 import torch
 
 from . import build
+from .build import H100_SMS
 
 __all__ = [
     "LAUNCHES",
@@ -84,8 +85,6 @@ _FWD_MAX_NB, _FWD_STEPS, _FWD_CHUNK_K = 16, 4, 32
 # else _FWD_TWO_BLOCKS_BYTES, so that two blocks share one)
 _FWD_RINGS = (8, 4, 2)
 _FWD_TWO_BLOCKS_BYTES = 113 * 1024
-# the SMs of an H100 SXM: forward_plan's default where no card is asked
-H100_SMS = 132
 # the backward: its largest row tile (the scratch is padded to it), the
 # weight-gradient tile (dW in 128 x 128 blocks) and its staged rows
 _BWD_MAX_TILE_ROWS, _GRAD_TILE, _GRAD_ROWS = 64, 128, 32
@@ -312,11 +311,6 @@ def forward_plan_words(plan: ForwardPlan):
     return (ctypes.c_int32 * len(words))(*words)
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
 def _chain(weights, biases, x, acts) -> List[int]:
     """Validate the stack for the kernels; return the widths [K_0, N_0, ..., N_{L-1}]."""
     n_layers = len(weights)
@@ -377,7 +371,7 @@ def _forward_kernel(weights, biases, x, acts) -> torch.Tensor:
     n = x.shape[0]
     out = torch.empty((n, dims[-1]), dtype=torch.float32, device=x.device)
     lib = _library()
-    plan = forward_plan(dims, acts, n, _sm_count(x.device.index))
+    plan = forward_plan(dims, acts, n, build.sm_count(x.device.index))
     split = torch.empty((max(plan.split_words, 1), 4), dtype=torch.int32, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream

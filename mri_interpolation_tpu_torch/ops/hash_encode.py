@@ -16,6 +16,7 @@ entry of :data:`LAUNCHES` per kernel launch, and nowhere else.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
@@ -23,6 +24,7 @@ import torch
 
 from ..encodings.hashgrid import HashGridEncoding
 from . import build
+from .build import H100_SMS
 
 __all__ = [
     "LAUNCHES",
@@ -37,6 +39,9 @@ __all__ = [
     "HashEncode",
     "coarse_onehot_levels",
     "coarse_constants",
+    "CoarseGradPlan",
+    "coarse_grad_plan",
+    "coarse_plan_words",
     "hash_encode_coarse_forward",
     "hash_encode_coarse_table_grad",
     "hash_encode_coarse_reference",
@@ -52,6 +57,8 @@ LAUNCHES = {"hash_encode_forward": 0, "hash_encode_table_grad": 0,
 
 ONEHOT_MAX_ROWS = 2048  # the JAX package's _ONEHOT_MAX_ROWS
 _MAX_SHARED_BYTES = 232448  # Hopper's opt-in shared memory per block
+_SM_SHARED_BYTES = 233472  # Hopper's shared memory per SM
+_BLOCK_RESERVED_BYTES = 1024  # the shared memory that CUDA keeps for each resident block
 # fp32 sums taken in another order: |error| <= ATOMIC_SUM_C * 2^-24 * sum|terms|
 # (see atomic_sum_bound)
 ATOMIC_SUM_C = 8.0
@@ -68,6 +75,20 @@ PRIVATE_MAX_BYTES = _MAX_SHARED_BYTES // 2
 # threads, the fewest groups that give every SM work (each group recomputes
 # its point's cell and weights)
 MIN_GRID_THREADS = 2 * 132 * 256
+# the coarse table gradient's plan (coarse_grad_plan): blocks of 256 threads,
+# at most COARSE_BLOCKS_PER_SM an SM (the kernel is bound by the latency of
+# its warp sums and shared atomics: more warps an SM hide more of it), in
+# clusters of up to COARSE_MAX_CLUSTER (the portable limit); a block takes
+# at least one update of its points for each accumulator entry that the
+# cluster's flush reads from it
+COARSE_THREADS = 256
+COARSE_BLOCKS_PER_SM = 4
+COARSE_MAX_CLUSTER = 8
+# kernel 4 gives each of a block's warps its own copy of the accumulator
+# (plain adds, no shared atomics) where the copies of every coarse row fit
+# this many bytes, enough that several blocks still share an SM
+COARSE_WARPS = COARSE_THREADS // 32
+COARSE_WARP_COPIES_BYTES = 48 * 1024
 
 _SIGNATURE = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
               ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
@@ -87,6 +108,7 @@ def _library() -> ctypes.CDLL:
             fn.argtypes = _SIGNATURE
             fn.restype = ctypes.c_int
         lib.hash_encode_table_grad.argtypes = _PLAN_SIGNATURE
+        lib.hash_encode_coarse_table_grad.argtypes = _PLAN_SIGNATURE
         lib.hash_encode_error_string.argtypes = [ctypes.c_int]
         lib.hash_encode_error_string.restype = ctypes.c_char_p
     return lib
@@ -275,12 +297,101 @@ def _coarse_levels(enc: HashGridEncoding, max_rows: int) -> List[int]:
     return levels
 
 
+def _level_too_large(F: int, rows: int) -> Optional[str]:
+    largest = 4 * F * rows
+    if largest > _MAX_SHARED_BYTES:
+        return (f"a coarse level of {largest} bytes exceeds a block's {_MAX_SHARED_BYTES} bytes "
+                "of shared memory: lower max_rows")
+    return None
+
+
 def _check_coarse(enc: HashGridEncoding, levels: Sequence[int]) -> None:
     _check_geometry(enc)
-    largest = 4 * enc.n_features_per_level * max(int(enc.level_sizes[l]) for l in levels)
-    if largest > _MAX_SHARED_BYTES:
-        raise ValueError(f"a coarse level of {largest} bytes exceeds a block's {_MAX_SHARED_BYTES} bytes "
-                         "of shared memory: lower max_rows")
+    msg = _level_too_large(enc.n_features_per_level, max(int(enc.level_sizes[l]) for l in levels))
+    if msg:
+        raise ValueError(msg)
+
+
+class CoarseGradPlan(NamedTuple):
+    """How kernel 4 walks the points and flushes its accumulators."""
+
+    grid: int  # blocks of COARSE_THREADS threads, a whole number of clusters
+    cluster: int  # blocks a cluster: 1, 2, 4 or 8
+    copies: int  # accumulators a block: 1 (shared atomics) or COARSE_WARPS (one a warp, plain adds)
+    shared_bytes: int  # a block's accumulators: copies x the largest group's rows
+    group_ends: Tuple[int, ...]  # groups of consecutive coarse levels [0, e0), [e0, e1), ...
+
+
+def coarse_grad_plan(enc: HashGridEncoding, levels: Sequence[int], n: int, sms: int = H100_SMS) -> CoarseGradPlan:
+    """The plan of ``hash_encode_coarse_table_grad`` for ``n`` points on the
+    coarse ``levels`` of ``enc``, on a card of ``sms`` SMs. A pure function
+    of them, cached.
+
+    Accumulators: one a warp where ``COARSE_WARPS`` copies of every coarse
+    row fit ``COARSE_WARP_COPIES_BYTES`` (one group of levels), else one a
+    block, in groups: the longest runs of consecutive levels whose rows fit
+    a block's shared memory, one after another (a level that alone does not
+    fit is refused with ValueError). Grid: at most ``COARSE_BLOCKS_PER_SM``
+    blocks an SM, and no more than the SM's shared memory holds (at one
+    block's accumulators and the 1 KB that CUDA keeps a block), at most as
+    many as give each block one update (points x levels x 2^d corners x F)
+    per accumulator entry of every group; of those, the fewest whole
+    clusters that walk the points in as few rounds
+    of ``COARSE_THREADS`` points a block, so that no block takes a round
+    more than the others (one point a thread where the card holds them
+    all). Cluster: the largest power of two up to ``COARSE_MAX_CLUSTER``
+    that the grid holds."""
+    sizes = tuple(int(enc.level_sizes[l]) for l in levels)
+    return _coarse_grad_plan(sizes, int(enc.input_dim), int(enc.n_features_per_level), int(n), int(sms))
+
+
+@functools.lru_cache(maxsize=1024)
+def _coarse_grad_plan(sizes: Tuple[int, ...], d: int, F: int, n: int, sms: int) -> CoarseGradPlan:
+    budget = _MAX_SHARED_BYTES // (4 * F)
+    for rows in sizes:
+        msg = _level_too_large(F, rows)
+        if msg:
+            raise ValueError(msg)
+    ends, used, rows_max = [], 0, 0
+    for j, rows in enumerate(sizes):
+        if used + rows > budget:
+            ends.append(j)
+            used = 0
+        used += rows
+        rows_max = max(rows_max, used)
+    ends.append(len(sizes))
+    starts = [0, *ends[:-1]]
+    copies = COARSE_WARPS if COARSE_WARPS * 4 * F * sum(sizes) <= COARSE_WARP_COPIES_BYTES else 1
+    shared_bytes = copies * 4 * F * rows_max
+    per_sm = min(COARSE_BLOCKS_PER_SM, _SM_SHARED_BYTES // (shared_bytes + _BLOCK_RESERVED_BYTES))
+    want = max(1, -(-n // COARSE_THREADS))  # one point a thread
+    limit = per_sm * sms
+    for j0, j1 in zip(starts, ends):
+        updates = n * (j1 - j0) * (1 << d) * F
+        limit = min(limit, updates // (F * sum(sizes[j0:j1])))
+    limit = max(limit, 1)
+    cluster = min(COARSE_MAX_CLUSTER, 1 << (min(want, limit).bit_length() - 1))
+    most = max(1, limit // cluster)  # clusters
+    # as few clusters as take every point in as many rounds as `most` would:
+    # each thread walks the same number of points, give or take one
+    rounds = -(-want // (most * cluster))
+    grid = cluster * -(-want // (rounds * cluster))
+    return CoarseGradPlan(grid, cluster, copies, shared_bytes, tuple(ends))
+
+
+@functools.lru_cache(maxsize=1024)
+def coarse_plan_words(plan: CoarseGradPlan):
+    """The plan as kernel 4 reads it (int32): grid, cluster, copies, shared
+    bytes, the number of groups, then each group's end level."""
+    words = [plan.grid, plan.cluster, plan.copies, plan.shared_bytes, len(plan.group_ends), *plan.group_ends]
+    return np.asarray(words, dtype=np.int32)
+
+
+def _card_coarse_grad_plan(enc: HashGridEncoding, levels: Sequence[int], n: int,
+                           device: torch.device) -> CoarseGradPlan:
+    """coarse_grad_plan for the SMs of the card that holds ``device``."""
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    return coarse_grad_plan(enc, levels, n, build.sm_count(index))
 
 
 def hash_encode_coarse_reference(enc: HashGridEncoding, table: torch.Tensor, x: torch.Tensor,
@@ -304,7 +415,9 @@ def hash_encode_coarse_forward(enc: HashGridEncoding, table: torch.Tensor, x: to
     """The coarse levels' features (N, n_coarse*F) in level order from the
     fused table (T, F). CUDA tensors launch kernel 3; CPU tensors take the
     plain version. Raises ValueError when no level qualifies or when one
-    level's rows alone exceed a block's shared memory."""
+    level's rows alone exceed a block's shared memory: kernel 3 stages no
+    rows, but it refuses the levels that kernel 4's accumulator refuses, so
+    that ``hash_encode_coarse`` fails in its forward, not in its backward."""
     if not (x.is_cuda or table.is_cuda):
         return hash_encode_coarse_reference(enc, table, x, max_rows)
     levels = _coarse_levels(enc, max_rows)
@@ -320,8 +433,9 @@ def hash_encode_coarse_forward(enc: HashGridEncoding, table: torch.Tensor, x: to
 def hash_encode_coarse_table_grad(enc: HashGridEncoding, x: torch.Tensor, g: torch.Tensor,
                                   max_rows: int = ONEHOT_MAX_ROWS) -> torch.Tensor:
     """dL/dtable (T, F) of the fused table for upstream g (N, n_coarse*F),
-    zero outside the coarse levels. CUDA tensors launch kernel 4; CPU tensors
-    take the plain version."""
+    zero outside the coarse levels. CUDA tensors launch kernel 4 after
+    :func:`coarse_grad_plan` for the card; CPU tensors take the plain
+    version."""
     if not (x.is_cuda or g.is_cuda):
         return hash_encode_coarse_table_grad_reference(enc, x, g, max_rows)
     levels = _coarse_levels(enc, max_rows)
@@ -329,8 +443,10 @@ def hash_encode_coarse_table_grad(enc: HashGridEncoding, x: torch.Tensor, g: tor
     build.check_tensor("x", x, (n, enc.input_dim), g.device)
     build.check_tensor("g", g, (n, len(levels) * enc.n_features_per_level), g.device)
     _check_coarse(enc, levels)
+    plan = _card_coarse_grad_plan(enc, levels, n, g.device)
     dtable = torch.zeros((enc.total_size, enc.n_features_per_level), dtype=torch.float32, device=g.device)
-    _launch("hash_encode_coarse_table_grad", x, g, dtable, enc, coarse_constants(enc, levels))
+    _launch("hash_encode_coarse_table_grad", x, g, dtable, enc, coarse_constants(enc, levels),
+            coarse_plan_words(plan))
     return dtable
 
 

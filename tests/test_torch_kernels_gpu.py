@@ -64,13 +64,14 @@ def cuda_device():
     return torch.device("cuda")
 
 
-def _inputs(cfg, n, device, g_cols=None):
-    """Encoder, x in [0, 1) (0 and 1 in the first two rows), a U(-1, 1)
-    table and an N(0, 1) cotangent of ``g_cols`` columns (default all levels')."""
-    rng = np.random.default_rng(0)
+def _inputs(cfg, n, device, g_cols=None, seed=0):
+    """Encoder, x in [0, 1) (0 and 1 in the first two rows, where there are
+    two), a U(-1, 1) table and an N(0, 1) cotangent of ``g_cols`` columns
+    (default all levels')."""
+    rng = np.random.default_rng(seed)
     enc = HashGridEncoding(**cfg)
     x = rng.random((n, cfg["dim"]), dtype=np.float32)
-    x[0], x[1] = 0.0, 1.0
+    x[:2] = np.array([0.0, 1.0], dtype=np.float32)[:n, None]
     table = rng.uniform(-1, 1, (enc.total_size, cfg["n_features_per_level"])).astype(np.float32)
     g = rng.standard_normal((n, enc.output_dim if g_cols is None else g_cols)).astype(np.float32)
     return (enc, *(torch.from_numpy(a).to(device) for a in (x, table, g)))
@@ -87,13 +88,33 @@ def test_kernels_match_plain_versions(name, cuda_device):
     assert he.LAUNCHES == {**ZERO, "hash_encode_forward": 1, "hash_encode_table_grad": 1}
     np.testing.assert_allclose(y.cpu().numpy(), he.hash_encode_reference(enc, table, x).cpu().numpy(),
                                rtol=0, atol=2e-6)
-    _assert_within_atomic_bound(dt, he.hash_encode_table_grad_reference(enc, x, g), he.table_grad_abs_sum(enc, x, g))
+    _assert_within_atomic_bound(dt, he.hash_encode_table_grad_reference(enc, x, g), enc, x, g)
 
 
-def _assert_within_atomic_bound(got, want, abs_sum):
-    bound = he.atomic_sum_bound(abs_sum)
-    excess = ((got - want).abs() - bound).max()
-    assert float(excess) <= 0.0, f"max |kernel - plain| exceeds the per-row bound by {float(excess)}"
+def _assert_within_atomic_bound(got, want, enc, x, g, levels=None):
+    """Every (row, feature) of the table gradient ``got`` within
+    ``he.atomic_sum_bound`` of ``want``, the bound taken over the terms that
+    ``levels`` (default all; g holds their columns) add there. On failure,
+    reports the entry of the largest excess: its row, level and feature, both
+    values, its number of terms n, sum|t|, sqrt(n * sum t^2), the bound and
+    the excess."""
+    levels = list(range(enc.n_levels)) if levels is None else list(levels)
+    bound = he.atomic_sum_bound(he.table_grad_abs_sum(enc, x, g, levels))
+    excess = (got - want).abs() - bound
+    worst = int(torch.argmax(excess))
+    if float(excess.reshape(-1)[worst]) <= 0.0:
+        return
+    F = enc.n_features_per_level
+    row, f = divmod(worst, F)
+    ids, terms = he._scatter_terms(enc, x, g, levels)
+    t = terms[ids == row][:, f].double().cpu()
+    n, abs_sum, sq = t.numel(), float(t.abs().sum()), float((t.numel() * t.square().sum()).sqrt())
+    level = int(np.searchsorted(enc.level_offsets, row, side="right")) - 1
+    raise AssertionError(
+        f"|kernel - plain| exceeds the per-row bound at row {row} (level {level}) feature {f}: kernel "
+        f"{float(got.reshape(-1)[worst])!r}, plain {float(want.reshape(-1)[worst])!r}, {n} terms, "
+        f"sum|t| {abs_sum!r}, sqrt(n sum t^2) {sq!r}, bound {float(bound.reshape(-1)[worst])!r}, "
+        f"excess {float(excess.reshape(-1)[worst])!r}")
 
 
 def _forward_bound(ref):
@@ -116,7 +137,22 @@ def test_kernels_match_plain_versions_outside_the_unit_cube(name, cuda_device):
     ref = he.hash_encode_reference(enc, table, x)
     assert float((y - ref).abs().max()) <= _forward_bound(ref)
     dt = he.hash_encode_table_grad(enc, x, g)
-    _assert_within_atomic_bound(dt, he.hash_encode_table_grad_reference(enc, x, g), he.table_grad_abs_sum(enc, x, g))
+    _assert_within_atomic_bound(dt, he.hash_encode_table_grad_reference(enc, x, g), enc, x, g)
+
+
+SEEDS = list(range(1, 25))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("seed", SEEDS)
+def test_table_grad_outside_the_unit_cube_seeds(seed, cuda_device):
+    """The flagship case of the test above with other inputs: kernel 2 with
+    x in [-1, 1], where clamped dense cells extrapolate the weights, so the
+    terms of one boundary row span orders of magnitude."""
+    enc, x, _, g = _inputs(OUTSIDE["flagship"], 4099, cuda_device, seed=seed)
+    x = 2 * x - 1
+    dt = he.hash_encode_table_grad(enc, x, g)
+    _assert_within_atomic_bound(dt, he.hash_encode_table_grad_reference(enc, x, g), enc, x, g)
 
 
 @pytest.mark.gpu
@@ -181,7 +217,7 @@ def test_table_grad_on_a_raster_order_frame(cuda_device):
     dt = he.hash_encode_table_grad(enc, x, g)
     torch.cuda.synchronize()
     assert he.LAUNCHES == {**ZERO, "hash_encode_table_grad": 1}
-    _assert_within_atomic_bound(dt, he.hash_encode_table_grad_reference(enc, x, g), he.table_grad_abs_sum(enc, x, g))
+    _assert_within_atomic_bound(dt, he.hash_encode_table_grad_reference(enc, x, g), enc, x, g)
 
 
 MIXED_F = [1, 2, 4, 8]
@@ -205,7 +241,7 @@ def test_table_grad_private_and_global_levels_mixed(f, lo, cuda_device):
     dt = he.hash_encode_table_grad(enc, x, g)
     torch.cuda.synchronize()
     assert he.LAUNCHES == {**ZERO, "hash_encode_table_grad": 1}
-    _assert_within_atomic_bound(dt, he.hash_encode_table_grad_reference(enc, x, g), he.table_grad_abs_sum(enc, x, g))
+    _assert_within_atomic_bound(dt, he.hash_encode_table_grad_reference(enc, x, g), enc, x, g)
 
 
 # ---------------------------------------------------------------------------
@@ -242,8 +278,7 @@ def _coarse_check(enc, x, table, g, max_rows=he.ONEHOT_MAX_ROWS):
     ref = he.hash_encode_coarse_reference(enc, table, x, max_rows)
     assert y.shape == ref.shape == (x.shape[0], len(levels) * enc.n_features_per_level)
     assert float((y - ref).abs().max()) <= _forward_bound(ref)
-    _assert_within_atomic_bound(dt, he.hash_encode_coarse_table_grad_reference(enc, x, g, max_rows),
-                                he.table_grad_abs_sum(enc, x, g, levels))
+    _assert_within_atomic_bound(dt, he.hash_encode_coarse_table_grad_reference(enc, x, g, max_rows), enc, x, g, levels)
 
 
 @pytest.mark.gpu
@@ -268,6 +303,58 @@ def test_coarse_kernels_stage_levels_in_groups(cuda_device):
     _coarse_check(enc, x, table, g, max_rows=7000)
     with pytest.raises(ValueError, match="shared memory"):  # a level of 7,744 rows x 8 alone: 248 KB
         he.hash_encode_coarse_forward(enc, table, x, max_rows=8000)
+
+
+def _one_cell(n, dim, rng):
+    """n points in [0.5, 0.51)^dim: inside one cell of every coarse level of
+    the multi-frame and bench geometries (resolutions up to 43), so every
+    point hits the same 2^d rows on a level and each warp sums 32 terms a
+    row (the deepest warp tree)."""
+    return (0.5 + rng.uniform(0.0, 0.01, (n, dim))).astype(np.float32)
+
+
+# kernel 4's plan at the edges: (geometry, N, how x is drawn)
+PLAN_CASES = [("multi_frame", 20_001, "uniform"),  # ragged: not a whole number of 256 x cluster points
+              ("multi_frame", 1, "uniform"), ("bench", 1, "uniform"),
+              ("multi_frame", 352 * 352, "raster"),  # one frame in raster order: 2-3 cells a warp
+              ("multi_frame", 50_000, "one cell"), ("bench", 4099, "one cell")]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,n,how", PLAN_CASES, ids=[f"{c}-{n}-{h.replace(' ', '_')}" for c, n, h in PLAN_CASES])
+def test_coarse_table_grad_plan_edges(name, n, how, cuda_device):
+    enc = HashGridEncoding(**COARSE[name])
+    cols = len(he.coarse_onehot_levels(enc)) * enc.n_features_per_level
+    enc, x, table, g = _inputs(COARSE[name], n, cuda_device, g_cols=cols)
+    if how == "raster":
+        xs = np.linspace(0, 1, 352, dtype=np.float32)
+        gx, gy = np.meshgrid(xs, xs, indexing="ij")
+        x = torch.from_numpy(np.stack([gx.reshape(-1), gy.reshape(-1)], axis=-1)).to(cuda_device)
+    elif how == "one cell":
+        x = torch.from_numpy(_one_cell(n, enc.input_dim, np.random.default_rng(7))).to(cuda_device)
+    plan = he._card_coarse_grad_plan(enc, he.coarse_onehot_levels(enc), n, x.device)
+    assert plan.grid % plan.cluster == 0 and plan.cluster in (1, 2, 4, 8)
+    _coarse_check(enc, x, table, g)
+
+
+@pytest.mark.gpu
+def test_coarse_refused_launch_raises(cuda_device, monkeypatch):
+    """Plans that the C side refuses (a cluster past 8 blocks, a grid that is
+    not a whole number of clusters, shared memory past the opt-in): the
+    wrapper raises, counts no launch and takes no other route. All three are
+    refused before ``cudaLaunchKernelEx``: no plan that passes the C side's
+    checks is known that the H100 refuses to launch (clusters of at most 8
+    blocks at up to the opt-in shared memory fit a GPC), so an error of the
+    cluster launch itself reaches the same ``err != 0`` path in ``_launch``
+    untested on the card."""
+    enc, x, _, g = _inputs(COARSE["bench"], 4099, cuda_device, g_cols=4)
+    card_plan = he._card_coarse_grad_plan
+    for bad in (dict(grid=16, cluster=16), dict(grid=12, cluster=8), dict(shared_bytes=300_000)):
+        monkeypatch.setattr(he, "_card_coarse_grad_plan", lambda *a, bad=bad: card_plan(*a)._replace(**bad))
+        he.reset_launches()
+        with pytest.raises(RuntimeError, match="hash_encode_coarse_table_grad launch failed"):
+            he.hash_encode_coarse_table_grad(enc, x, g)
+        assert he.LAUNCHES == ZERO
 
 
 @pytest.mark.gpu
@@ -297,7 +384,7 @@ def test_coarse_autograd_on_card_matches_cpu(cuda_device):
         ((he.hash_encode_coarse(enc, t, x.to(dev)) - tgt.to(dev)) ** 2).mean().backward()
         grads[str(dev)] = t.grad.cpu()
     g = 2 * (he.hash_encode_coarse_reference(enc, table, x) - tgt) / tgt.numel()
-    _assert_within_atomic_bound(grads[str(cuda_device)], grads["cpu"], he.table_grad_abs_sum(enc, x, g, range(4)))
+    _assert_within_atomic_bound(grads[str(cuda_device)], grads["cpu"], enc, x, g, range(4))
     assert not grads[str(cuda_device)][int(enc.level_offsets[4]):].any()
 
 

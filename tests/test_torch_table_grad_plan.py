@@ -140,3 +140,38 @@ def test_split_computes_the_jax_table_gradient(name, n, lo):
     bound = he.atomic_sum_bound(he.table_grad_abs_sum(enc, xt, gt), atol=1e-6)
     for ref in (want, he.hash_encode_table_grad_reference(enc, xt, gt)):
         assert float(((got - ref).abs() - bound).max()) <= 0.0
+
+
+def test_atomic_sum_bound_holds_random_orders_on_clamped_rows():
+    """The flagship with x in [-1, 1], as the card test draws it: dense levels
+    clamp the cell at 0 and the weights extrapolate, so a boundary row sums
+    terms that span orders of magnitude (sqrt(n sum t^2) well above
+    sum|t|). Two sums of each row's terms in independent random orders, in
+    fp32 one term at a time (what the kernel's atomics and ``index_add_`` on
+    the card do), differ by less than ``atomic_sum_bound`` on every row."""
+    cfg = GEOMETRIES["flagship"]
+    enc = HashGridEncoding(**cfg)
+    rng = np.random.default_rng(0)
+    x = rng.random((4099, 3), dtype=np.float32)
+    x[:2] = np.array([0.0, 1.0], dtype=np.float32)[:, None]
+    rng.uniform(-1, 1, (enc.total_size, 1))  # the card test's table, drawn and unused here
+    g = rng.standard_normal((4099, enc.output_dim)).astype(np.float32)
+    x = 2 * x - 1
+    ids, terms = he._scatter_terms(enc, torch.from_numpy(x), torch.from_numpy(g), range(enc.n_levels))
+    ids, t = ids.numpy(), terms[:, 0].numpy()
+    order = np.argsort(ids, kind="stable")
+    ids, t = ids[order], t[order]
+    _, start, count = np.unique(ids, return_index=True, return_counts=True)
+    rows = np.nonzero(count >= 8)[0]
+    padded = np.zeros((len(rows), count.max()), dtype=np.float32)  # zeros add nothing in any order
+    for k, r in enumerate(rows):
+        padded[k, :count[r]] = t[start[r]:start[r] + count[r]]
+    abs_sum = np.abs(padded).astype(np.float64).sum(axis=1)
+    spread = np.sqrt(count[rows] * np.square(padded.astype(np.float64)).sum(axis=1))
+    assert (spread / abs_sum).max() > 2.5  # rms|t| / mean|t| far from a Gaussian's 1.25
+    bound = he.atomic_sum_bound(torch.from_numpy(abs_sum)).numpy()
+    shuffle = np.random.default_rng(1)
+    for _ in range(8):
+        sums = [np.cumsum(np.take_along_axis(padded, np.argsort(shuffle.random(padded.shape), axis=1), axis=1),
+                          axis=1, dtype=np.float32)[:, -1] for _ in range(2)]
+        assert (np.abs(sums[0].astype(np.float64) - sums[1]) <= bound).all()
