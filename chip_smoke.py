@@ -10,8 +10,8 @@ Phases, each printed with its time as it ends:
 1. device: the card's name and power limit (nvidia-smi);
 2. build: the CUDA kernels from ``mri_interpolation_tpu_torch/ops/csrc`` with
    nvcc (one process per source, all at once), then the probe kernel held
-   exactly to ``2 * x`` and timed against ``torch.mul`` as medians of 200
-   launches each;
+   exactly to ``2 * x`` and timed against ``torch.mul`` and an empty kernel
+   (a launch alone) as medians of 200 launches each;
 3. kernels: each kernel against its plain PyTorch version on the card, at the
    main paths' shapes (and, for the hash kernels, a hashed geometry at a
    training batch and at path B's grid chunk; for the fused MLP, path B's
@@ -25,7 +25,10 @@ Phases, each printed with its time as it ends:
    levels (times side by side), on the whole multi-frame encoder and on it
    in raster order; and what one
    multi-frame grid frame launches: kernel 1 at the frame's coordinates,
-   kernel 5 on the three stacks at their grid inputs), with times (the
+   kernel 5 on the three stacks at their grid inputs; kernels 1-2 on the
+   NGP geometry, 3 dense levels x F = 8, and kernels 5-6 on its relu
+   24-64-1 decoder, at a training batch and a grid chunk, x in [0, 1] and
+   in [-1, 1]), with times (the
    profiler's device time, or CUDA events over a CUDA graph where it records
    none; kernel 5's forward rows hold its split prologue and its forward
    kernel), bounds (for kernels 5-6 also the 3xTF32 tensor-core bound) and
@@ -33,7 +36,12 @@ Phases, each printed with its time as it ends:
 4. small fit: ``Trainer.fit`` on the card against the same fit on the CPU, for
    the flagship HashMLP, a small SIREN and a small ``relu_plain`` HashMLP
    with ``adam_tcnn``; ``Trainer.fit_frames`` likewise for a small
-   MultiHashMLP and MultiSiren;
+   MultiHashMLP and MultiSiren; then the options: the relu_plain HashMLP
+   with cosine and gradient accumulation, the flagship with a freeze mask
+   and weight decay, with the level anneal and the temporal TV, and with
+   remat (held also to the card's fit without remat, BatchNorm statistics
+   and the anneal counter included), and ``fit_frames`` with cosine and
+   accumulation;
 5. main paths, each with the launch counters set to 0 just before it and
    read just after:
    - flagship: ``launcher.run`` with the defaults on a synthetic
@@ -51,9 +59,21 @@ Phases, each printed with its time as it ends:
      (30 steps) on a synthetic (352, 352, 15) 2-D+t volume split into 15
      frames of 123,904 voxels, then ``evaluate_grid((352, 352),
      frame_idx=t)`` for every frame, PSNR and SSIM;
+   - ngp: ``launcher.main`` with the NGP 3-level F=8 paper+cosine flags
+     (``scripts/experiments.py:158-166``: 2,224,303 dense rows x 8,
+     relu_plain 24 -> 64 -> 1, ``adam_tcnn``, lr 1e-2, batch 10,000), 2
+     epochs (370 steps) with the cosine over both, the eval PSNR and a
+     checkpoint every epoch, then the grids; its scalars, checkpoints and
+     last learning rate are checked;
+   - ngp_resume: the same model resumed from ngp's checkpoints for 1
+     epoch with gradient accumulation 2, remat and the temporal TV: its
+     first loss continues ngp's last, and kernels 1 and 5 launch twice a
+     step;
+   - flagship_anneal: ``launcher.run`` with the flagship defaults and a
+     92-step level anneal, whose launches are the flagship's;
 6. profile: device time by kernel over 20 training steps of each path (one
-   epoch of 15 frames for the multi-frame models) and one flagship grid
-   evaluation (torch.profiler).
+   epoch of 15 frames for the multi-frame models) and one grid evaluation
+   of the flagship, paths A and B and ngp (torch.profiler).
 
 The last two lines are the kernels' JSON line and
 ``{"ok": true, "device": {...}}``. Any failed phase exits non-zero before
@@ -115,6 +135,14 @@ FRAME = (352, 352)  # one frame of the multi-frame paths: 123,904 voxels
 MULTI_HASH = dict(dim_in=2, n_frames=15, n_levels=10, n_features_per_level=2, log2_hashmap_size=17,
                   base_resolution=16, per_level_scale=1.4, dim_hidden=64, n_layers=2)
 MULTI_SIREN = dict(dim_in=2, dim_hidden=128, n_layers=4, n_frames=15)  # experiments.py:233-237
+# the NGP 3-level F=8 paper+cosine HashMLP (scripts/experiments.py:158-166, RESULTS.md:16)
+NGP = dict(n_levels=3, n_features_per_level=8, log2_hashmap_size=23, base_resolution=(64, 64, 5),
+           finest_resolution=(352, 352, 15), growth="paper", dim_hidden=64, n_layers=2, decoder="relu_plain")
+NGP_FLAGS = ["--n_levels", "3", "--n_features_per_level", "8", "--log2_hashmap_size", "23",
+             "--base_resolution", "64,64,5", "--finest_resolution", "352,352,15", "--growth", "paper",
+             "--dim_hidden", "64", "--n_layers", "2", "--decoder", "relu_plain", "--optimizer", "adam_tcnn",
+             "--lr", "1e-2", "--batch_size", "10000"]
+NGP_STEPS = 185  # one epoch of (352, 352, 15) at batch 10,000
 TCNN_FLAGS = ["--n_levels", "16", "--n_features_per_level", "2", "--log2_hashmap_size", "19",
               "--base_resolution", "16", "--per_level_scale", "1.4", "--dim_hidden", "128", "--n_layers", "2",
               "--decoder", "relu_plain", "--lr", "1e-2", "--optimizer", "adam_tcnn"]
@@ -189,6 +217,14 @@ def flops_per_point_level(d: int, f: int, grad: bool) -> int:
     c = 1 << d
     per_corner = c * (d - 1) + d
     return 2 * d + per_corner + (2 * c * f if grad else f * (2 * c - 1))
+
+
+def table_grad_bytes(n: int, d: int, L: int, F: int, touched_rows: int) -> float:
+    """Bytes kernel 2 moves: x and g read once, and a read and a write of
+    each touched (row, feature) of the zeroed gradient (its atomics add into
+    those alone; the wrapper's zero fill of the dense (T, F) output is a
+    separate kernel, not timed with it)."""
+    return 4.0 * (n * d + n * L * F + 2 * touched_rows * F)
 
 
 def bound_ms(nbytes: float, flops: float):
@@ -340,8 +376,7 @@ def check_kernels(torch, he, enc_flagship, enc_hashed, dev):
         contrib = (g.reshape(n, L, 1, F) * w2.unsqueeze(-1)).reshape(-1, F)
         flat_ids = ids2.reshape(-1)
         zeros = torch.zeros((enc.total_size, F), device=dev)
-        gb, gk = bound_ms(4.0 * (n * d + n * L * F + enc.total_size * F),
-                          n * L * flops_per_point_level(d, F, grad=True))
+        gb, gk = bound_ms(table_grad_bytes(n, d, L, F, touched), n * L * flops_per_point_level(d, F, grad=True))
         call = lambda: he.hash_encode_table_grad(enc, x, g)  # noqa: E731
         row = {"geometry": geom, "n": n, "what": what, "max_abs_err": err,
                # every kernel of the call: the private and the global levels' (table_grad_plan)
@@ -358,11 +393,11 @@ def check_kernels(torch, he, enc_flagship, enc_hashed, dev):
     return rows
 
 
-def encoder_rows(torch, he, enc, table, x, g, what: str) -> dict:
-    """Kernels 1 and 2 on the multi-frame encoder ``enc`` at one frame,
-    against their plain versions (forward: 2e-6 of the largest value; table
-    gradient: the per-entry atomic bound), with times, bounds, the plain
-    versions' and, for kernel 2, ``index_add_``'s."""
+def encoder_rows(torch, he, enc, table, x, g, what: str, geometry: str = "multi_frame") -> dict:
+    """Kernels 1 and 2 on the encoder ``enc`` (by default the multi-frame
+    one at one frame), against their plain versions (forward: 2e-6 of the
+    largest value; table gradient: the per-entry atomic bound), with times,
+    bounds, the plain versions' and, for kernel 2, ``index_add_``'s."""
     n, d, L, F = x.shape[0], enc.input_dim, enc.n_levels, enc.n_features_per_level
     out = he.hash_encode_forward(enc, table, x)
     ref = he.hash_encode_reference(enc, table, x)
@@ -372,22 +407,22 @@ def encoder_rows(torch, he, enc, table, x, g, what: str) -> dict:
     torch.cuda.synchronize()
     ferr, tol = float((out - ref).abs().max()), FWD_ATOL * max(1.0, float(ref.abs().max()))
     if not math.isfinite(ferr) or ferr > tol:
-        fail(f"hash_encode_forward multi_frame {what}: max abs err {ferr} > {tol}")
+        fail(f"hash_encode_forward {geometry} {what}: max abs err {ferr} > {tol}")
     gerr = float((dt - dref).abs().max())
     excess = float(((dt - dref).abs() - he.atomic_sum_bound(abs_sum)).max())
     if not math.isfinite(gerr) or excess > 0.0:
-        fail(f"hash_encode_table_grad multi_frame {what}: max abs err {gerr}, {excess} over the per-row bound")
+        fail(f"hash_encode_table_grad {geometry} {what}: max abs err {gerr}, {excess} over the per-row bound")
     ids, w = enc.corner_ids_and_weights(x)
     touched = int(torch.unique(ids).numel())
     contrib = (g.reshape(n, L, 1, F) * w.unsqueeze(-1)).reshape(-1, F)
     flat_ids, zeros = ids.reshape(-1), torch.zeros((enc.total_size, F), device=x.device)
     fb, fk = bound_ms(4.0 * (n * d + touched * F + n * L * F), n * L * flops_per_point_level(d, F, grad=False))
-    gb, gk = bound_ms(4.0 * (n * d + n * L * F + enc.total_size * F), n * L * flops_per_point_level(d, F, grad=True))
-    frow = {"geometry": "multi_frame", "n": n, "what": what, "max_abs_err": ferr, "tolerance": tol,
+    gb, gk = bound_ms(table_grad_bytes(n, d, L, F, touched), n * L * flops_per_point_level(d, F, grad=True))
+    frow = {"geometry": geometry, "n": n, "what": what, "max_abs_err": ferr, "tolerance": tol,
             **kernel_times(lambda: he.hash_encode_forward(enc, table, x), "hash_encode_forward_kernel"),
             "plain_ms": time_ms(lambda: he.hash_encode_reference(enc, table, x), iters=5),
             "bound_ms": fb, "bound_by": fk, "library_ms": None}
-    grow = {"geometry": "multi_frame", "n": n, "what": what, "max_abs_err": gerr,
+    grow = {"geometry": geometry, "n": n, "what": what, "max_abs_err": gerr,
             "largest_bound": float(he.atomic_sum_bound(abs_sum).max()),
             **kernel_times(lambda: he.hash_encode_table_grad(enc, x, g), "hash_encode_table_grad", per_call=True),
             "plan": he.table_grad_plan(enc, n)._asdict(),
@@ -395,10 +430,36 @@ def encoder_rows(torch, he, enc, table, x, g, what: str) -> dict:
             "bound_ms": gb, "bound_by": gk,
             "library_ms": kernel_ms(lambda: zeros.index_add_(0, flat_ids, contrib), "")}
     for label, row in (("forward   ", frow), ("table_grad", grow)):
-        log(f"  {label} multi_frame N={n:>7,d} ({what}): err {row['max_abs_err']:.3e}  kernel {row['ms']} ms"
+        log(f"  {label} {geometry} N={n:>7,d} ({what}): err {row['max_abs_err']:.3e}  kernel {row['ms']} ms"
             f"  per call {row['call_ms']:.4f} ms  plain {row['plain_ms']:.4f} ms"
             f"  library {row['library_ms']} ms  bound {row['bound_ms']:.5f} ms ({row['bound_by']})")
     return {"hash_encode_forward": frow, "hash_encode_table_grad": grow}
+
+
+def check_ngp_hash_kernels(torch, he, dev) -> dict:
+    """Kernels 1 and 2 on the NGP geometry (3 dense levels x F = 8,
+    2,224,303 rows; every level global in kernel 2's plan, the corners split
+    4 ways) at a training batch (N = 10,000) and a grid chunk (N = 131,072),
+    x in [0, 1] and in [-1, 1], a table drawn U(-1, 1); returns per-kernel
+    rows."""
+    from mri_interpolation_tpu_torch.encodings import HashGridEncoding
+
+    gen = torch.Generator(device="cpu").manual_seed(8)
+    enc = HashGridEncoding(dim=3, **{k: NGP[k] for k in ("n_levels", "n_features_per_level", "log2_hashmap_size",
+                                                         "base_resolution", "finest_resolution", "growth")})
+    table = (torch.rand((enc.total_size, enc.n_features_per_level), generator=gen) * 2 - 1).to(dev)
+    log(f"[kernels] ngp: {enc.total_size:,d} rows x F={enc.n_features_per_level}, dense {enc.level_dense.tolist()}, "
+        f"plan at N=10,000 {he.table_grad_plan(enc, 10_000)}")
+    rows = {"hash_encode_forward": [], "hash_encode_table_grad": []}
+    for n, what in ((10_000, "train batch"), (1 << 17, "grid chunk")):
+        for lo in (0.0, -1.0):
+            x = torch.rand((n, 3), generator=gen) * (1.0 - lo) + lo
+            x[0], x[1] = lo, 1.0
+            g = torch.randn((n, enc.output_dim), generator=gen)
+            label = f"{what}, x in [{lo:g}, 1]"
+            for name, row in encoder_rows(torch, he, enc, table, x.to(dev), g.to(dev), label, "ngp").items():
+                rows[name].append(row)
+    return rows
 
 
 def check_coarse_kernels(torch, he, dev):
@@ -559,6 +620,7 @@ def check_fused_mlp(torch, fm, dev):
     and B, the siren 352x5 shape and a small gelu stack; returns per-kernel
     rows."""
     from mri_interpolation_tpu_torch.models import make_hash_mlp, make_multi_hash_mlp, make_multi_siren, make_siren
+    from mri_interpolation_tpu_torch.models.core import dense_init
 
     gen = torch.Generator(device="cpu").manual_seed(1)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
@@ -570,6 +632,7 @@ def check_fused_mlp(torch, fm, dev):
                          per_level_scale=1.4, dim_hidden=128, n_layers=2, decoder="relu_plain", device=dev)
     gelu_layers = [{"w": (torch.rand((k, n), generator=gen) - 0.5).to(dev) / 4,
                     "b": (torch.rand((n,), generator=gen) - 0.5).to(dev) / 4} for k, n in ((16, 64), (64, 64), (64, 2))]
+    ngp_layers = [{k: v.to(dev) for k, v in dense_init(k, n, gen).items()} for k, n in ((24, 64), (64, 1))]
     wide_layers = [{"w": (torch.rand((k, n), generator=gen) - 0.5).to(dev) / math.sqrt(k),
                     "b": (torch.rand((n,), generator=gen) - 0.5).to(dev) / math.sqrt(k)} for k, n in ((8, 832), (832, 3))]
 
@@ -594,6 +657,9 @@ def check_fused_mlp(torch, fm, dev):
         ("multi_siren dec", *siren_stack(multi_siren.decoder.params(), 4), FRAME[0] * FRAME[1], -1.0, True, True),
         ("multi_hash dec", [l.params for l in multi_hash.decoder], fm.mlp_acts(1, "relu"), FRAME[0] * FRAME[1], -1.0,
          True, True),
+        # the NGP HashMLP's relu 24-64-1 decoder (kernel 2's dx feeds it the table gradient)
+        ("ngp train step", ngp_layers, fm.mlp_acts(1, "relu"), 10_000, -1.0, True, True),
+        ("ngp grid chunk", ngp_layers, fm.mlp_acts(1, "relu"), 1 << 17, -1.0, False, False),
     ]
     rows = {"fused_mlp_forward": [], "fused_mlp_backward": []}
     with torch.no_grad():
@@ -745,41 +811,89 @@ def check_probe(torch, pr, dev):
     pr.check_build(dev)
     n = x.numel()
     pb, pk = bound_ms(4.0 * 2 * n, float(n))
-    # each kernel alone, 200 launches: medians and spread (one profiler reading sits at an empty launch's length)
+    # each kernel alone, 200 launches: medians and spread; an empty kernel's is a launch alone
     probe_stats = launch_stats(lambda: pr.probe(x), "probe_double_kernel")
     mul_stats = launch_stats(lambda: torch.mul(x, 2.0), "")
+    empty_stats = launch_stats(lambda: pr.launch_empty(dev), "probe_empty_kernel")
     return {"what": "build check", "n": n, "max_abs_err": 0.0,
             **kernel_times(lambda: pr.probe(x), "probe_double_kernel"),
             "plain_ms": time_ms(lambda: pr.probe_reference(x)), "bound_ms": pb, "bound_by": pk,
             "library_ms": kernel_ms(lambda: torch.mul(x, 2.0), ""),
-            "launch_stats": {"probe": probe_stats, "torch_mul": mul_stats,
-                             "probe_slower_beyond_spread": bool(probe_stats["p25_us"] > mul_stats["p75_us"])}}
+            # the least a launched kernel takes: the larger of the byte bound and an empty launch
+            "launch_floor_ms": max(pb, empty_stats["median_us"] * 1e-3),
+            "launch_stats": {"probe": probe_stats, "torch_mul": mul_stats, "empty_kernel": empty_stats,
+                             "probe_slower_beyond_spread": bool(probe_stats["p25_us"] > mul_stats["p75_us"]),
+                             "probe_above_empty_beyond_spread": bool(probe_stats["p25_us"] > empty_stats["p75_us"])}}
 
 
-def small_fit_matches_cpu(torch, name: str, make_model, cfg, zero_centered: bool = False) -> float:
-    """Ten steps of Trainer.fit on a (16, 16, 8) volume, card vs CPU, from
-    one init; a hash table is redrawn U(-0.5, 0.5): at the factory's 1e-4
-    table scale BatchNorm cancels nearly equal numbers and the curves of any
-    two summation orders drift apart by ~3e-4 (tests/test_torch_trainer.py).
-    Returns the largest relative difference of the loss curves."""
+def small_fit_setup(torch, make_model, zero_centered: bool = False):
+    """A (16, 16, 8) volume and one init of ``make_model``; a hash table is
+    redrawn U(-0.5, 0.5): at the factory's 1e-4 table scale BatchNorm cancels
+    nearly equal numbers and the curves of any two summation orders drift
+    apart by ~3e-4 (tests/test_torch_trainer.py)."""
     from mri_interpolation_tpu_torch.io import dataset_from_array, synthetic_volume
-    from mri_interpolation_tpu_torch.train import Trainer
 
     ds = dataset_from_array(synthetic_volume((16, 16, 8), seed=3), zero_centered=zero_centered)
     state = make_model("cpu").state_dict()
     if "encoder.table" in state:
         state["encoder.table"] = torch.empty(state["encoder.table"].shape).uniform_(
             -0.5, 0.5, generator=torch.Generator().manual_seed(6))
-    losses = {}
-    for dev in ("cuda", "cpu"):
-        model = make_model(dev)
-        model.load_state_dict(state)
-        losses[dev] = Trainer(cfg).fit(model, ds.coords, ds.values, device=dev).losses
-    if len(losses["cpu"]) != 10 or not np.all(np.isfinite(losses["cuda"])):
-        fail(f"small fit {name}: {len(losses['cpu'])} steps, card losses {losses['cuda']}")
-    rel = float(np.max(np.abs(losses["cuda"] - losses["cpu"]) / np.abs(losses["cpu"])))
+    return ds, state
+
+
+def small_fit(make_model, cfg, dev, ds, state, freeze_mask_fn=None):
+    """Trainer.fit of a model loaded with ``state`` on ``dev``: (model, losses)."""
+    from mri_interpolation_tpu_torch.train import Trainer
+
+    model = make_model(dev)
+    model.load_state_dict(state)
+    return model, Trainer(cfg, freeze_mask_fn=freeze_mask_fn).fit(model, ds.coords, ds.values, device=dev).losses
+
+
+def curves_match(name: str, losses, ref) -> float:
+    """Ten finite losses, within rtol FIT_RTOL of ``ref``'s; returns the
+    largest relative difference."""
+    if len(ref) != 10 or not np.all(np.isfinite(losses)):
+        fail(f"small fit {name}: {len(ref)} steps, losses {losses}")
+    rel = float(np.max(np.abs(losses - ref) / np.abs(ref)))
     if rel > FIT_RTOL:
-        fail(f"small fit {name}: card and CPU loss curves differ by {rel} > rtol {FIT_RTOL}")
+        fail(f"small fit {name}: the two loss curves differ by {rel} > rtol {FIT_RTOL}")
+    return rel
+
+
+def small_fit_matches_cpu(torch, name: str, make_model, cfg, zero_centered: bool = False,
+                          freeze_mask_fn=None) -> float:
+    """Ten steps of Trainer.fit on the small volume, card vs CPU, from one
+    init (``small_fit_setup``); returns the largest relative difference of
+    the loss curves."""
+    ds, state = small_fit_setup(torch, make_model, zero_centered)
+    card = small_fit(make_model, cfg, "cuda", ds, state, freeze_mask_fn)[1]
+    return curves_match(name, card, small_fit(make_model, cfg, "cpu", ds, state, freeze_mask_fn)[1])
+
+
+def remat_matches_plain(torch, make_model, base: dict) -> float:
+    """Ten steps with remat and without, both on the card, from one init:
+    the loss curves, the BatchNorm statistics (rtol FIT_RTOL: kernel 2's
+    atomics sum in another order in each run) and the anneal counter
+    (exactly 10 in both). The BatchNorm-fed biases are frozen: their true
+    gradient is zero, so Adam moves them by float noise, differently in each
+    run, and the running means track them. Returns the loss curves' largest
+    relative difference."""
+    from mri_interpolation_tpu_torch.train import TrainConfig
+
+    ds, state = small_fit_setup(torch, make_model)
+    freeze = lambda named: {k: not (k.startswith("layers.") and k.endswith(".b")) for k in named}  # noqa: E731
+    remat, remat_losses = small_fit(make_model, TrainConfig(**base, remat=True), "cuda", ds, state, freeze)
+    plain, plain_losses = small_fit(make_model, TrainConfig(**base), "cuda", ds, state, freeze)
+    rel = curves_match("flagship remat vs plain (card)", remat_losses, plain_losses)
+    plain_state = plain.state_dict()
+    for key, a in remat.state_dict().items():
+        b = plain_state[key]
+        if key == "anneal_step":
+            if int(a) != 10 or int(b) != 10:
+                fail(f"flagship remat: anneal counter {int(a)} (remat) and {int(b)} (plain) after 10 steps")
+        elif key.startswith("bn.") and not torch.allclose(a, b, rtol=FIT_RTOL, atol=1e-6):
+            fail(f"flagship remat: BatchNorm {key} differs from the fit without remat by {float((a - b).abs().max())}")
     return rel
 
 
@@ -803,6 +917,40 @@ def small_fits(torch) -> dict:
     }
 
 
+def small_option_fits(torch) -> dict:
+    """The trainer's and HashMLP's options, 10 steps each, card vs CPU: the
+    relu_plain HashMLP with adam_tcnn, cosine and accumulation over 3
+    mini-steps; the flagship with its decoder frozen and weight decay 1e-3;
+    with a 5-step level anneal and the temporal TV; and with remat and the
+    anneal, held to the CPU, and to the card's fit without remat
+    (``remat_matches_plain``). Returns the largest relative differences."""
+    from mri_interpolation_tpu_torch.models import make_hash_mlp
+    from mri_interpolation_tpu_torch.train import TrainConfig
+
+    flagship = dict(base_resolution=(4, 4, 2), finest_resolution=(16, 16, 8), dim_hidden=16, seed=5)
+    tcnn = dict(n_levels=8, n_features_per_level=2, log2_hashmap_size=12, base_resolution=4, per_level_scale=1.5,
+                dim_hidden=64, n_layers=2, decoder="relu_plain", seed=5)
+    base = dict(batch_size=200, epochs=1, shuffle=False)
+    rels = {
+        "relu_plain cosine k3": small_fit_matches_cpu(
+            torch, "relu_plain cosine k3", lambda d: make_hash_mlp(3, device=d, **tcnn),
+            TrainConfig(**base, lr=1e-2, optimizer="adam_tcnn", lr_schedule="cosine", cosine_t_max=1,
+                        accumulate_grad_batches=3)),
+        "flagship frozen wd": small_fit_matches_cpu(
+            torch, "flagship frozen wd", lambda d: make_hash_mlp(3, device=d, **flagship),
+            TrainConfig(**base, weight_decay=1e-3), freeze_mask_fn=lambda named: {
+                k: k.startswith("encoder.") for k in named}),
+        "flagship anneal tv": small_fit_matches_cpu(
+            torch, "flagship anneal tv",
+            lambda d: make_hash_mlp(3, device=d, level_anneal_steps=5, temporal_tv=0.1, **flagship),
+            TrainConfig(**base)),
+    }
+    make = lambda d: make_hash_mlp(3, device=d, level_anneal_steps=5, **flagship)  # noqa: E731
+    rels["flagship remat"] = small_fit_matches_cpu(torch, "flagship remat", make, TrainConfig(**base, remat=True))
+    rels["flagship remat vs plain (card)"] = remat_matches_plain(torch, make, base)
+    return rels
+
+
 def small_fit_frames_match_cpu(torch) -> dict:
     """Ten steps of Trainer.fit_frames (2 epochs x 5 frames of a (16, 16, 5)
     volume), card vs CPU, from one init, for a small MultiHashMLP (tables
@@ -823,6 +971,10 @@ def small_fit_frames_match_cpu(torch) -> dict:
         "multi_siren": (lambda d: make_multi_siren(dim_in=2, dim_hidden=32, n_layers=3, n_frames=5, device=d, seed=5),
                         TrainConfig(epochs=2, lr=1e-4, weight_decay=1e-5), 2 * coords - 1, 2 * values - 1),
     }
+    # the options fit_frames takes: cosine over 2 epochs of frames, accumulation over 2 frames
+    models["multi_hash_mlp cosine k2"] = (models["multi_hash_mlp"][0], TrainConfig(
+        epochs=2, lr=5e-3, weight_decay=1e-5, lr_schedule="cosine", cosine_t_max=2, accumulate_grad_batches=2),
+        coords, values)
     rels = {}
     for name, (make_model, cfg, c, v) in models.items():
         state = make_model("cpu").state_dict()
@@ -895,19 +1047,121 @@ def drive_path(name: str, kind: str, fn, steps: int, batch: int, expected: dict)
     if summary["steps"] != steps or summary["batch_size"] != batch or launches != expected:
         fail(f"{name}: {summary['steps']} steps at batch {summary['batch_size']}, launches {launches}; "
              f"expected {steps} steps at {batch}, launches {expected}")
-    train_s = summary["train_wall_s"]
+    train_s, hook_s = summary["train_wall_s"], summary["train_hook_s"]  # the whole fit, epoch hooks included
     grid_s = summary["interp_eval_s"][str(GRID)]
-    out = {"steps": steps, "train_wall_s": train_s, "steps_per_s": steps / train_s,
-           "train_voxel_evals_per_s": steps * batch / train_s, "recon_eval_s": summary["recon_eval_s"],
+    out = {"run_dir": run_dir, "steps": steps, "train_wall_s": train_s, "train_hook_s": hook_s,
+           "steps_per_s": steps / train_s, "train_voxel_evals_per_s": steps * batch / train_s,
+           # per layer: the trainer's loop alone, the hooks' scalars, eval and checkpoints apart
+           "steps_per_s_without_hooks": steps / (train_s - hook_s), "recon_eval_s": summary["recon_eval_s"],
            "grid_eval_s": grid_s, "grid_voxels_per_s": float(np.prod(GRID)) / grid_s, "psnr": summary["psnr"],
            "ssim": summary["ssim"], "final_loss": summary["final_loss"], "wall_s": seconds, "launches": launches}
     log(f"[{name}] {kind}: {steps} steps in {train_s:.3f} s = {out['steps_per_s']:.1f} steps/s, "
-        f"{out['train_voxel_evals_per_s']:,.0f} training voxel-evals/s")
+        f"{out['train_voxel_evals_per_s']:,.0f} training voxel-evals/s; epoch hooks {hook_s:.3f} s of it "
+        f"({out['steps_per_s_without_hooks']:.1f} steps/s without them)")
     log(f"[{name}] {kind}: {GRID} grid of {int(np.prod(GRID)):,d} voxels in {grid_s:.3f} s = "
         f"{out['grid_voxels_per_s']:,.0f} voxels/s; reconstruction {summary['recon_eval_s']:.3f} s")
     log(f"[{name}] PSNR {summary['psnr']:.3f} dB, SSIM {summary['ssim']:.4f}, final loss "
         f"{summary['final_loss']:.5f}; launches {launches}; {seconds:.1f} s")
     return out
+
+
+def ngp_geometry():
+    from mri_interpolation_tpu_torch.encodings import HashGridEncoding
+
+    keys = ("n_levels", "n_features_per_level", "log2_hashmap_size", "base_resolution", "finest_resolution", "growth")
+    return HashGridEncoding(dim=3, **{k: NGP[k] for k in keys})
+
+
+def check_ngp_run(out: dict) -> None:
+    """ngp's scalars (370 train_loss and 2 finite psnr records), its epoch
+    checkpoints, and the optimizer state that the first epoch's checkpoint
+    holds: after 185 inner updates, Adam's count 185 and the rate of update
+    184, the cosine's closed form with D = 370 (the final checkpoint, as in
+    the JAX launcher, holds the model alone)."""
+    from mri_interpolation_tpu_torch.train import read_scalars, restore_checkpoint
+
+    recs = read_scalars(os.path.join(out["run_dir"], "scalars.jsonl"))
+    losses = [r["value"] for r in recs if r["tag"] == "train_loss"]
+    psnr = [r["value"] for r in recs if r["tag"] == "psnr"]
+    if len(losses) != 2 * NGP_STEPS or len(psnr) != 2 or not np.all(np.isfinite(losses + psnr)):
+        fail(f"ngp: {len(losses)} train_loss and {len(psnr)} psnr records ({psnr})")
+    ckpt_dir = os.path.join(out["run_dir"], "checkpoints")
+    ckpts = sorted(os.listdir(ckpt_dir))
+    if ckpts != sorted([f"step_{NGP_STEPS}.pt", f"step_{2 * NGP_STEPS}.pt"]):
+        fail(f"ngp: checkpoints {ckpts}")
+    opt = restore_checkpoint(ckpt_dir, NGP_STEPS)["optimizer"]
+    decay = 2 * NGP_STEPS
+    want = 1e-2 * 0.5 * (1.0 + math.cos(math.pi * (NGP_STEPS - 1) / decay))
+    got = opt["adam"]["param_groups"][0]["lr"]
+    adam_steps = {int(st["step"]) for st in opt["adam"]["state"].values()}
+    if not math.isclose(got, want, rel_tol=1e-12) or adam_steps != {NGP_STEPS} or opt["updates"] != NGP_STEPS:
+        fail(f"ngp: step_{NGP_STEPS}.pt: rate {got} (closed form {want}), Adam steps {adam_steps}, "
+             f"{opt['updates']} updates")
+    out.update(eval_psnr=psnr, lr_at_update_184=got, first_loss=losses[0], last_losses=losses[-10:])
+    log(f"[ngp] eval PSNR by epoch {psnr}; step_{NGP_STEPS}.pt: rate of update {NGP_STEPS - 1} {got:.6e} = closed "
+        f"form {want:.6e}, Adam count {NGP_STEPS}; checkpoints {ckpts}")
+
+
+def check_ngp_resume(out: dict, ngp: dict, ngp_ckpt: str) -> None:
+    """The resumed fit starts where ngp ended, not from an init: its first
+    loss is below a tenth of ngp's first and at most 3x ngp's last ten plus
+    the temporal TV term of the restored table."""
+    from mri_interpolation_tpu_torch.encodings.hashgrid import temporal_table_tv
+    from mri_interpolation_tpu_torch.train import read_scalars, restore_checkpoint
+
+    first = read_scalars(os.path.join(out["run_dir"], "scalars.jsonl"), "train_loss")[0]["value"]
+    table = restore_checkpoint(ngp_ckpt)["model"]["encoder.table"]
+    tv_term = 1e-3 * float(temporal_table_tv(ngp_geometry(), table))
+    if not (first < 0.1 * ngp["first_loss"] and first <= 3 * max(ngp["last_losses"]) + tv_term):
+        fail(f"ngp_resume: first loss {first}; ngp began at {ngp['first_loss']} and ended at {ngp['last_losses']}, "
+             f"TV term {tv_term}")
+    out.update(first_loss=first, tv_term=tv_term)
+    log(f"[ngp_resume] first loss {first:.6f}: ngp began at {ngp['first_loss']:.6f}, ended at "
+        f"{ngp['last_losses'][-1]:.6f}; TV term of the restored table {tv_term:.3e}")
+
+
+def drive_ngp_paths(path: str, tmp: str, zero: dict, paths: dict) -> None:
+    """Phase 5's paths of the trainer's options, each with the counters at 0
+    just before it and read just after: ngp, ngp_resume (from ngp's
+    checkpoints) and flagship_anneal (whose launches must equal
+    ``paths["flagship"]``'s), on the volume at ``path``."""
+    from mri_interpolation_tpu_torch import launcher
+    from mri_interpolation_tpu_torch.configs import RunConfig
+    from mri_interpolation_tpu_torch.train import restore_checkpoint
+
+    grid = ["--image_path", path, "--interp_shapes", str(GRID)]
+    # NGP paper+cosine: 2 epochs, the cosine over both; per epoch one eval forward of 103,254 voxels
+    paths["ngp"] = drive_path(
+        "ngp", "launcher.main, NGP 3-level F=8 paper+cosine",
+        lambda: cli(launcher, [*NGP_FLAGS, "--lr_schedule", "cosine", "--cosine_t_max", "2", "--epochs", "2",
+                               "--eval_every_epochs", "1", "--checkpoint_every_epochs", "1",
+                               "--output_root", os.path.join(tmp, "ngp"), *grid]),
+        2 * NGP_STEPS, 10_000, {**zero, "hash_encode_forward": 2 * NGP_STEPS + 2 + CHUNKS,
+                                "hash_encode_table_grad": 2 * NGP_STEPS,
+                                "fused_mlp_forward": 2 * NGP_STEPS + 2 + CHUNKS,
+                                "fused_mlp_backward": 2 * NGP_STEPS, "probe": 1})
+    check_ngp_run(paths["ngp"])
+    # resumed: remat runs kernels 1 and 5 twice a step (the forward, and again inside the backward)
+    ngp_ckpt = os.path.join(paths["ngp"]["run_dir"], "checkpoints")
+    paths["ngp_resume"] = drive_path(
+        "ngp_resume", "launcher.main, ngp resumed with accumulation 2, remat and temporal TV",
+        lambda: cli(launcher, [*NGP_FLAGS, "--checkpoint_path", ngp_ckpt, "--epochs", "1",
+                               "--accumulate_grad_batches", "2", "--remat", "true", "--temporal_tv", "1e-3",
+                               "--output_root", os.path.join(tmp, "ngp_resume"), *grid]),
+        NGP_STEPS, 10_000, {**zero, "hash_encode_forward": 2 * NGP_STEPS + CHUNKS,
+                            "hash_encode_table_grad": NGP_STEPS, "fused_mlp_forward": 2 * NGP_STEPS + CHUNKS,
+                            "fused_mlp_backward": NGP_STEPS, "probe": 1})
+    check_ngp_resume(paths["ngp_resume"], paths["ngp"], ngp_ckpt)
+    # the level anneal adds no launch: the flagship's counts
+    paths["flagship_anneal"] = drive_path(
+        "flagship_anneal", "launcher.run, flagship with a 92-step level anneal",
+        lambda: launcher.run(RunConfig(image_path=path, output_root=os.path.join(tmp, "anneal"), epochs=1,
+                                       interp_shapes=(GRID,), level_anneal_steps=92)),
+        NGP_STEPS, 10_000, paths["flagship"]["launches"])
+    counter = int(restore_checkpoint(os.path.join(paths["flagship_anneal"]["run_dir"], "checkpoints"))
+                  ["model"]["anneal_step"])
+    if counter != NGP_STEPS:
+        fail(f"flagship_anneal: anneal counter {counter} after {NGP_STEPS} steps")
 
 
 def drive_frames(name: str, make_model, cfg, img, zero_centered: bool, expected: dict) -> dict:
@@ -1000,7 +1254,7 @@ def cli(launcher, argv):
 def profile_main_paths(torch) -> None:
     """Print device time by kernel over 20 training steps of each path (per
     step; one epoch of 15 frames for the multi-frame models), one
-    (352, 352, 30) grid evaluation of the flagship, path A and path B, and the 15
+    (352, 352, 30) grid evaluation of the flagship, paths A and B and ngp, and the 15
     (352, 352) frame grids of the multi-frame HashMLP (per frame), each under
     torch.profiler (which slows the host, so the busy shares are lower
     bounds)."""
@@ -1019,14 +1273,18 @@ def profile_main_paths(torch) -> None:
     multi_siren = make_multi_siren(**MULTI_SIREN)
     tcnn = make_hash_mlp(3, n_levels=16, n_features_per_level=2, log2_hashmap_size=19, base_resolution=16,
                          per_level_scale=1.4, dim_hidden=128, n_layers=2, decoder="relu_plain")
+    ngp = make_hash_mlp(3, **NGP)
     fit = lambda model, d, cfg, n: lambda: Trainer(cfg).fit(model, d.coords[:n], d.values[:n])  # noqa: E731
     phases = (
         ("flagship train_step", fit(flagship, ds, TrainConfig(epochs=1), 200_000), 20),
         ("path A train_step", fit(siren, zc, TrainConfig(batch_size=4096, lr=1e-4), 20 * 4096), 20),
         ("path B train_step", fit(tcnn, ds, TrainConfig(lr=1e-2, optimizer="adam_tcnn"), 200_000), 20),
+        ("ngp train_step", fit(ngp, ds, TrainConfig(lr=1e-2, optimizer="adam_tcnn", lr_schedule="cosine",
+                                                    cosine_t_max=2), 200_000), 20),
         ("flagship grid_eval_352x352x30", lambda: evaluate_grid(flagship, GRID), 1),
         ("path A grid_eval_352x352x30", lambda: evaluate_grid(siren, GRID, lo=-1.0), 1),
         ("path B grid_eval_352x352x30", lambda: evaluate_grid(tcnn, GRID), 1),
+        ("ngp grid_eval_352x352x30", lambda: evaluate_grid(ngp, GRID), 1),
         ("multi_hash_mlp train_step", lambda: Trainer(TrainConfig(lr=5e-3)).fit_frames(
             multi_hash, frame_coords, frame_values), 15),
         ("multi_siren train_step", lambda: Trainer(TrainConfig(lr=1e-4)).fit_frames(
@@ -1089,7 +1347,9 @@ def main() -> int:
             log(f"[build] {who}: {st['launches']} launches ({st['source']}): median {st['median_us']:.3f} us, "
                 f"quartiles {st['p25_us']:.3f}-{st['p75_us']:.3f} us, range {st['min_us']:.3f}-{st['max_us']:.3f} us")
     log(f"[build] probe slower than torch.mul beyond the spread (its p25 > mul's p75): "
-        f"{probe_row['launch_stats']['probe_slower_beyond_spread']}")
+        f"{probe_row['launch_stats']['probe_slower_beyond_spread']}; than an empty kernel: "
+        f"{probe_row['launch_stats']['probe_above_empty_beyond_spread']}; floor (byte bound or an empty launch) "
+        f"{probe_row['launch_floor_ms'] * 1e3:.3f} us")
 
     # 3. kernels against their plain versions
     t0 = time.perf_counter()
@@ -1102,6 +1362,8 @@ def main() -> int:
     rows = check_kernels(torch, he, flagship, hashed, dev)
     for name, krows in check_coarse_kernels(torch, he, dev).items():
         rows.setdefault(name, []).extend(krows)
+    for name, krows in check_ngp_hash_kernels(torch, he, dev).items():
+        rows[name].extend(krows)
     rows.update(check_fused_mlp(torch, fm, dev))
     for name, krows in check_grid_frames(torch, he, fm, dev).items():
         rows[name].extend(krows)
@@ -1111,6 +1373,7 @@ def main() -> int:
     # 4. small fits, card vs CPU
     t0 = time.perf_counter()
     rels = small_fits(torch)
+    rels.update(small_option_fits(torch))
     rels.update(small_fit_frames_match_cpu(torch))
     log(f"[small fit] 10 steps each, card vs CPU loss curves, max rel diff (rtol {FIT_RTOL}): "
         + ", ".join(f"{k} {v:.3e}" for k, v in rels.items()) + f" in {time.perf_counter() - t0:.1f} s")
@@ -1138,6 +1401,7 @@ def main() -> int:
             lambda: cli(launcher, [*TCNN_FLAGS, "--output_root", os.path.join(tmp, "b"), *common]),
             185, 10_000, {**zero, "hash_encode_forward": 185 + CHUNKS, "hash_encode_table_grad": 185,
                           "fused_mlp_forward": 185 + CHUNKS, "fused_mlp_backward": 185, "probe": 1})
+        drive_ngp_paths(path, tmp, zero, paths)
 
     # the kernel bench: each timed call runs once to check, 3 times to warm up, ITERS times timed
     calls = 1 + 3 + bench_kernels.ITERS

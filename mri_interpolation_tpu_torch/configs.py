@@ -83,7 +83,13 @@ class RunConfig:
     # --- inference / output
     interp_shapes: Tuple[Tuple[int, ...], ...] = ((352, 352, 30),)
     output_root: str = "runs"
+    checkpoint_path: Optional[str] = None  # resume: a checkpoints directory (its latest step)
     save_checkpoint: bool = True
+    checkpoint_every_epochs: int = 0     # >0: also checkpoint every k epochs
+    eval_every_epochs: int = 0           # >0: eval PSNR into scalars.jsonl every k epochs
+    save_latents: bool = False           # not ported yet (ROADMAP.md)
+    tb_events: bool = False              # not ported yet (ROADMAP.md)
+    remat: bool = False                  # recompute the forward in the backward (memory for FLOPs)
 
     def model_kwargs(self) -> dict:
         """The union of the model factories' keyword arguments; the launcher

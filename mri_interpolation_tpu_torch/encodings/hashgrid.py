@@ -17,6 +17,10 @@ Semantics kept from the reference:
 - hashed rows are tcnn's spatial hash: per-dim uint32 prime multiply, XOR
   fold, modulo the level size. Here it runs in int64 masked to 32 bits,
   because torch's CPU ``%`` is not implemented for uint32.
+
+``temporal_table_tv`` is the time-axis smoothness prior of the HashMLP's
+``temporal_tv`` option, in plain tensor code (the JAX package has no kernel
+for it either).
 """
 
 from __future__ import annotations
@@ -26,7 +30,7 @@ from typing import Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
-__all__ = ["HashGridEncoding", "PRIMES", "LEVEL_CONST_WIDTH"]
+__all__ = ["HashGridEncoding", "PRIMES", "LEVEL_CONST_WIDTH", "temporal_table_tv"]
 
 # Hash primes (up to 7-D input), tcnn grid.h constants.
 PRIMES = (1, 2654435761, 805459861, 3674653429, 2097192037, 1434869437, 2165219737)
@@ -206,3 +210,23 @@ class HashGridEncoding:
             ids_levels.append(torch.stack(ids_c, dim=-1))
             w_levels.append(torch.stack(w_c, dim=-1))
         return torch.stack(ids_levels, dim=1), torch.stack(w_levels, dim=1)
+
+
+def temporal_table_tv(enc: HashGridEncoding, table: torch.Tensor) -> torch.Tensor:
+    """Mean squared difference of adjacent vertices along the last (time)
+    axis of every dense level's grid: each dense level's rows are viewed as
+    its C-ordered ``(verts..., F)`` grid, as the JAX package does. Levels
+    with fewer than two time vertices, and hashed levels, take no part. Its
+    gradient into the table is dense over the dense levels."""
+    total, count = table.new_zeros(()), 0
+    for l in range(enc.n_levels):
+        if not enc.level_dense[l]:
+            continue
+        verts = tuple(int(r) + 1 for r in enc.level_resolutions[l])
+        if verts[-1] < 2:
+            continue
+        seg = table[int(enc.level_offsets[l]):int(enc.level_offsets[l + 1])]
+        diff = torch.diff(seg.reshape(*verts, enc.n_features_per_level), dim=len(verts) - 1)
+        total = total + torch.sum(diff**2)
+        count += diff.numel()
+    return total / max(count, 1)

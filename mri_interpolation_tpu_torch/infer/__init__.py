@@ -1,5 +1,5 @@
-"""Inference: dense-grid evaluation."""
+"""Inference: dense-grid evaluation and chunked prediction."""
 
-from .grid import evaluate_grid, flat_index_to_coords
+from .grid import evaluate_grid, flat_index_to_coords, predict_batched
 
-__all__ = ["evaluate_grid", "flat_index_to_coords"]
+__all__ = ["evaluate_grid", "flat_index_to_coords", "predict_batched"]

@@ -1,17 +1,26 @@
 """The launcher: load -> fit -> reconstruct -> interpolate -> report.
 
 Port of the default branch of ``mri_interpolation_tpu/launcher.py``: load a
-NIfTI volume, fit the configured model with ``Trainer.fit``, reconstruct the
-volume on its own grid (``pred.nii.gz``), score PSNR/SSIM, evaluate each
-``interp_shapes`` grid (``interpolation{shape}.nii.gz``, rank-adapted to the
-volume), and write ``config.txt``, ``metrics.json`` and a ``torch.save``
-checkpoint into a versioned run directory. Before a run it checks the
-kernels' build with the probe kernel (``ops.probe.check_build``). Everything
-runs on ``cuda`` unless ``device="cpu"`` (``--device cpu``) is passed.
+NIfTI volume, build the configured model (or resume it from
+``checkpoint_path``: parameters and buffers, with a fresh optimizer and
+schedule), fit it with ``Trainer.fit`` (per-step losses into
+``scalars.jsonl``; every ``eval_every_epochs`` epochs the PSNR of a strided
+subsample of at most ~100k training voxels; every
+``checkpoint_every_epochs`` epochs a checkpoint with the optimizer state),
+reconstruct the volume on its own grid (``pred.nii.gz``), score PSNR/SSIM,
+evaluate each ``interp_shapes`` grid (``interpolation{shape}.nii.gz``,
+rank-adapted to the volume), and write ``config.txt``, ``metrics.json`` and
+the final checkpoint (``train/checkpoint.py``) into a versioned run
+directory. Before a run it checks the kernels' build with the probe kernel
+(``ops.probe.check_build``). Everything runs on ``cuda`` unless
+``device="cpu"`` (``--device cpu``) is passed.
 
 Usage:
     python -m mri_interpolation_tpu_torch.launcher --image_path vol.nii.gz \
         [--config_preset siren] [--enco_config_path cfg.json] [--epochs 10] ...
+    # resume from a run's checkpoints (its latest step)
+    python -m mri_interpolation_tpu_torch.launcher --image_path vol.nii.gz \
+        --checkpoint_path runs/version_0/checkpoints ...
 """
 
 from __future__ import annotations
@@ -81,6 +90,27 @@ def _check_ported(cfg: RunConfig) -> None:
         raise NotImplementedError("stream_shard_voxels is not ported yet: ROADMAP.md, queue 1")
     if cfg.undersample_pct > 0.0:
         raise NotImplementedError("undersample_pct is not ported yet: ROADMAP.md, queue 1")
+    for name in ("save_latents", "tb_events"):
+        if getattr(cfg, name):
+            raise NotImplementedError(f"{name} is not ported yet: ROADMAP.md, queue 1")
+
+
+def _make_eval_fn(coords: np.ndarray, values: np.ndarray, zero_centered: bool, device: torch.device):
+    """``eval_fn(model) -> {"psnr": dB}`` on every ``max(1, N // 100_000)``-th
+    training voxel, all of them in one forward (the JAX launcher's)."""
+    from .infer import predict_batched
+
+    stride = max(1, len(coords) // 100_000)
+    ev_c = np.ascontiguousarray(coords[::stride])
+    ev_v = np.ascontiguousarray(values[::stride])
+    data_range = 2.0 if zero_centered else 1.0
+
+    def eval_fn(m):
+        y = predict_batched(m, ev_c, chunk_size=len(ev_c), device=device)
+        mse = float(np.mean((y - ev_v) ** 2))
+        return {"psnr": 10.0 * np.log10(data_range**2 / max(mse, 1e-12))}
+
+    return eval_fn
 
 
 def run(cfg: RunConfig, run_dir: Optional[str] = None, device: DeviceLike = None) -> dict:
@@ -89,7 +119,7 @@ def run(cfg: RunConfig, run_dir: Optional[str] = None, device: DeviceLike = None
     from .io import load_volume, nifti
     from .metrics import evaluate_reconstruction
     from .ops.probe import check_build
-    from .train import TrainConfig, Trainer
+    from .train import TrainConfig, Trainer, restore_checkpoint, save_checkpoint
 
     dev = resolve_device(device)
     _check_ported(cfg)
@@ -113,14 +143,25 @@ def run(cfg: RunConfig, run_dir: Optional[str] = None, device: DeviceLike = None
             cfg.base_resolution = tuple(max(2, round(s / 5.5)) for s in ds.shape)
     model = build_model(cfg, dim_in, dev)
 
+    # ----- resume: parameters and buffers; the optimizer and schedule start afresh
+    if cfg.checkpoint_path:
+        model.load_state_dict(restore_checkpoint(cfg.checkpoint_path)["model"])
+
     # ----- fit
+    ckpt_dir = os.path.join(run_dir, "checkpoints")
     tc = TrainConfig(
         batch_size=cfg.batch_size, epochs=cfg.epochs, lr=cfg.lr, weight_decay=cfg.weight_decay,
         seed=cfg.seed, optimizer=cfg.optimizer, lr_schedule=cfg.lr_schedule,
         cosine_t_max=cfg.cosine_t_max, accumulate_grad_batches=cfg.accumulate_grad_batches,
-        loss=cfg.loss,
+        loss=cfg.loss, log_jsonl=os.path.join(run_dir, "scalars.jsonl"),
+        checkpoint_dir=ckpt_dir if cfg.save_checkpoint else None,
+        checkpoint_every_epochs=cfg.checkpoint_every_epochs, eval_every_epochs=cfg.eval_every_epochs,
+        remat=cfg.remat,
     )
-    result = Trainer(tc).fit(model, ds.coords, ds.values, device=dev)
+    eval_fn = None
+    if cfg.eval_every_epochs > 0:
+        eval_fn = _make_eval_fn(ds.coords, ds.values, cfg.zero_centered, dev)
+    result = Trainer(tc).fit(model, ds.coords, ds.values, device=dev, eval_fn=eval_fn)
 
     # ----- reconstruction + quality
     lo = -1.0 if cfg.zero_centered else 0.0
@@ -155,6 +196,7 @@ def run(cfg: RunConfig, run_dir: Optional[str] = None, device: DeviceLike = None
         "batch_size": min(cfg.batch_size, len(ds)),
         "final_loss": result.final_loss,
         "train_wall_s": result.wall_time_s,
+        "train_hook_s": result.hook_time_s,
         "steady_steps_per_sec": result.steady_steps_per_sec,
         "recon_eval_s": recon_s,
         "interp_eval_s": interp_s,
@@ -164,10 +206,7 @@ def run(cfg: RunConfig, run_dir: Optional[str] = None, device: DeviceLike = None
     with open(os.path.join(run_dir, "metrics.json"), "w") as f:
         json.dump(summary, f, indent=2)
     if cfg.save_checkpoint:
-        ckpt_dir = os.path.join(run_dir, "checkpoints")
-        os.makedirs(ckpt_dir, exist_ok=True)
-        torch.save({"step": result.steps, "model": model.state_dict()},
-                   os.path.join(ckpt_dir, f"step_{result.steps}.pt"))
+        save_checkpoint(ckpt_dir, result.steps, model.state_dict())
     return summary
 
 

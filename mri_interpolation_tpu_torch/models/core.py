@@ -8,7 +8,7 @@ and the layer computes ``x @ w + b``.
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 from torch import nn
@@ -113,9 +113,13 @@ class BatchNorm(nn.Module):
 
 class Model(nn.Module):
     """Uniform surface of the port's models: ``forward(x) -> y``; ``train()``
-    and ``eval()`` choose batch or running statistics."""
+    and ``eval()`` choose batch or running statistics. A model whose
+    training objective is not the trainer's ``loss_fn(model(x), y)`` sets
+    ``loss`` to a callable ``(x, y) -> scalar`` (the JAX ``Model.loss_fn``),
+    which ``Trainer.fit`` then minimises."""
 
     name = "model"
+    loss: Optional[Callable[[torch.Tensor, torch.Tensor], torch.Tensor]] = None
 
     def __init__(self, dim_in: int, dim_out: int):
         super().__init__()

@@ -14,6 +14,17 @@ The encoder runs the hash-encode kernel pair on the card
   backward hands the input cotangent on to the hash-encode table gradient.
 
 GELU is the tanh approximation, as ``jax.nn.gelu``'s default.
+
+Options, with the JAX factory's semantics:
+
+- ``level_anneal_steps`` > 0: a coarse-to-fine level curriculum. Level l's
+  features are scaled by ``clip(alpha * L - l + 1, 0, 1)``, alpha =
+  ``anneal_step / level_anneal_steps`` clipped to [0, 1], between encode and
+  decode. The counter is an int32 buffer ``anneal_step`` (the JAX
+  ``state["anneal_step"]``) that a training forward advances by one;
+- ``temporal_tv`` > 0: the model's ``loss`` is MSE plus ``temporal_tv`` x
+  ``encodings.hashgrid.temporal_table_tv`` of its table, whatever loss the
+  trainer is configured with.
 """
 
 from __future__ import annotations
@@ -25,7 +36,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..device import DeviceLike, resolve_device
-from ..encodings.hashgrid import HashGridEncoding
+from ..encodings.hashgrid import HashGridEncoding, temporal_table_tv
 from ..ops.fused_mlp import fused_mlp_apply
 from ..ops.hash_encode import HashEncode
 from .core import BatchNorm, Dense, Model, dense_init, dropout
@@ -54,8 +65,15 @@ class HashMLP(Model):
     name = "hash_mlp"
 
     def __init__(self, encoder: HashGridEncoder, widths: Sequence[int], decoder: str,
-                 activation: str, dropout_rate: float, generator: Optional[torch.Generator] = None):
+                 activation: str, dropout_rate: float, generator: Optional[torch.Generator] = None,
+                 temporal_tv: float = 0.0, level_anneal_steps: int = 0):
         super().__init__(encoder.geometry.input_dim, widths[-1])
+        self.level_anneal_steps = level_anneal_steps
+        self.temporal_tv = temporal_tv
+        if level_anneal_steps > 0:
+            self.register_buffer("anneal_step", torch.zeros((), dtype=torch.int32))
+        if temporal_tv > 0.0:
+            self.loss = self.mse_with_temporal_tv
         n_layers = len(widths) - 1
         self.dropout_rate = dropout_rate
         self.fused = decoder == "relu_plain"
@@ -81,8 +99,36 @@ class HashMLP(Model):
                 z = dropout(z, self.dropout_rate, self.training)
         return z
 
+    def anneal_weights(self) -> Optional[torch.Tensor]:
+        """The per-feature curriculum weights (L*F,) at the counter, or None
+        without a curriculum; float32 in the JAX package's order of
+        operations."""
+        if self.level_anneal_steps <= 0:
+            return None
+        geometry = self.encoder.geometry
+        L = geometry.n_levels
+        alpha = torch.clamp(self.anneal_step.to(torch.float32) / self.level_anneal_steps, 0.0, 1.0)
+        levels = torch.arange(L, dtype=torch.float32, device=alpha.device)
+        weights = torch.clamp(alpha * L - levels + 1.0, 0.0, 1.0)
+        return weights.repeat_interleave(geometry.n_features_per_level)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.decode(self.encode(x))
+        z = self.encode(x)
+        w = self.anneal_weights()
+        if w is not None:
+            z = z * w
+            if self.training:
+                with torch.no_grad():
+                    self.anneal_step.add_(1)
+        return self.decode(z)
+
+    def mse_with_temporal_tv(self, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+        """MSE plus the time-axis smoothness prior on the table (the model's
+        ``loss`` when ``temporal_tv`` > 0)."""
+        from ..train.losses import mse_loss
+
+        reg = temporal_table_tv(self.encoder.geometry, self.encoder.table)
+        return mse_loss(self(x), y) + self.temporal_tv * reg
 
 
 def make_hash_mlp(
@@ -112,10 +158,6 @@ def make_hash_mlp(
     dev = resolve_device(device)
     if decoder not in ("norm", "norm_proper", "relu_plain"):
         raise ValueError(f"unknown decoder {decoder!r}")
-    if level_anneal_steps > 0:
-        raise NotImplementedError("level_anneal_steps is not ported yet: ROADMAP.md, queue 1")
-    if temporal_tv > 0.0:
-        raise NotImplementedError("temporal_tv is not ported yet: ROADMAP.md, queue 1")
     geometry = HashGridEncoding(
         dim=dim_in,
         n_levels=n_levels,
@@ -130,5 +172,5 @@ def make_hash_mlp(
     gen = torch.Generator().manual_seed(seed)
     widths = [geometry.output_dim] + [dim_hidden] * (n_layers - 1) + [dim_out]
     encoder = HashGridEncoder(geometry, gen)
-    model = HashMLP(encoder, widths, decoder, activation, dropout_rate, gen)
+    model = HashMLP(encoder, widths, decoder, activation, dropout_rate, gen, temporal_tv, level_anneal_steps)
     return model.to(dev)

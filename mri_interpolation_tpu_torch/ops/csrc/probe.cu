@@ -7,7 +7,8 @@
 // result exactly to 2 * x (a doubling is exact in fp32).
 //
 // What bounds it: bytes (one read and one write per element); at 128 KB it
-// is a launch.
+// is a launch. probe_empty launches a kernel that does nothing, so its time
+// is the launch alone: the floor under every kernel, the probe's included.
 //
 // Interface: plain C, raw pointers, the caller's stream; returns
 // cudaGetLastError() so the Python wrapper raises on a refused launch.
@@ -25,9 +26,17 @@ probe_double_kernel(const float* __restrict__ x, float* __restrict__ y, int64_t 
   if (i < n) y[i] = 2.f * x[i];
 }
 
+__global__ void probe_empty_kernel() {}
+
 }  // namespace
 
 extern "C" {
+
+// One block of 32 threads of an empty kernel on the caller's stream.
+int probe_empty(void* stream) {
+  probe_empty_kernel<<<1, 32, 0, (cudaStream_t)stream>>>();
+  return (int)cudaGetLastError();
+}
 
 // y[i] = 2 * x[i] for i < n (device pointers); n == 0 launches nothing.
 int probe_double(const float* x, float* y, int64_t n, void* stream) {

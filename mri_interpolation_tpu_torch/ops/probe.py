@@ -7,7 +7,9 @@ first use and holds the probe kernel on a (256, 128) fp32 array exactly to
 
 Dispatch: a CPU tensor takes the plain version, a CUDA tensor launches the
 kernel (``csrc/probe.cu``) or the wrapper raises. :data:`LAUNCHES` counts
-kernel launches only.
+kernel launches only. :func:`launch_empty` launches a kernel that does
+nothing (card only, not counted): its time is a launch's, the floor under
+the probe's.
 """
 
 from __future__ import annotations
@@ -19,7 +21,7 @@ import torch
 from ..device import DeviceLike, resolve_device
 from . import build
 
-__all__ = ["LAUNCHES", "PROBE_SHAPE", "reset_launches", "probe_reference", "probe", "check_build"]
+__all__ = ["LAUNCHES", "PROBE_SHAPE", "reset_launches", "probe_reference", "probe", "launch_empty", "check_build"]
 
 LAUNCHES = {"probe": 0}
 PROBE_SHAPE = (256, 128)
@@ -36,6 +38,8 @@ def _library() -> ctypes.CDLL:
         lib.probe_double.restype = ctypes.c_int
         lib.probe_error_string.argtypes = [ctypes.c_int]
         lib.probe_error_string.restype = ctypes.c_char_p
+        lib.probe_empty.argtypes = [ctypes.c_void_p]
+        lib.probe_empty.restype = ctypes.c_int
     return lib
 
 
@@ -57,6 +61,18 @@ def probe(x: torch.Tensor) -> torch.Tensor:
     if x.numel() > 0:
         LAUNCHES["probe"] += 1
     return y
+
+
+def launch_empty(device: torch.device) -> None:
+    """Launch the empty kernel once on ``device``'s current stream (a CUDA
+    device: there is nothing to run elsewhere)."""
+    if device.type != "cuda":
+        raise ValueError(f"the empty kernel runs on a CUDA device, not {device}")
+    lib = _library()
+    with torch.cuda.device(device):
+        err = lib.probe_empty(torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"probe_empty launch failed: {lib.probe_error_string(err).decode()} (cudaError {err})")
 
 
 def check_build(device: DeviceLike = None) -> None:

@@ -19,7 +19,7 @@ from mri_interpolation_tpu_torch import device as port_device
 from mri_interpolation_tpu_torch import bench_kernels, launcher
 from mri_interpolation_tpu_torch.configs import RunConfig
 from mri_interpolation_tpu_torch.encodings import HashGridEncoding
-from mri_interpolation_tpu_torch.infer import evaluate_grid
+from mri_interpolation_tpu_torch.infer import evaluate_grid, predict_batched
 from mri_interpolation_tpu_torch.metrics import evaluate_reconstruction
 from mri_interpolation_tpu_torch.models import make_hash_mlp, make_multi_hash_mlp, make_multi_siren, make_siren
 from mri_interpolation_tpu_torch.ops import build
@@ -216,6 +216,46 @@ def test_slice_three_entry_points_raise_without_a_card(no_card, tmp_path):
     fm.reset_launches()
     Trainer(TrainConfig(epochs=1)).fit_frames(model, coords, values, device="cpu")
     assert evaluate_grid(model, (4, 4), frame_idx=1, device="cpu").shape == (4, 4)
+    assert set(he.LAUNCHES.values()) == {0} and set(fm.LAUNCHES.values()) == {0}
+
+
+def test_slice_seven_entry_points_raise_without_a_card(no_card, tmp_path):
+    """The trainer's options, the HashMLP's, predict_batched and the
+    launcher's resume run on the card or raise; with the CPU asked for they
+    run there and launch nothing."""
+    kw = dict(TINY, decoder="relu_plain", n_features_per_level=8, n_levels=3, growth="paper",
+              level_anneal_steps=3, temporal_tv=1e-3)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_hash_mlp(3, **kw)
+    model = make_hash_mlp(3, device="cpu", **kw)
+    coords = np.random.default_rng(0).random((64, 3), dtype=np.float32)
+    values = coords[:, :1].copy()
+    cfg = TrainConfig(batch_size=16, epochs=2, lr_schedule="cosine", accumulate_grad_batches=2, remat=True,
+                      log_jsonl=str(tmp_path / "s.jsonl"), checkpoint_dir=str(tmp_path / "ck"),
+                      checkpoint_every_epochs=1)
+    freeze = lambda named: {k: k.startswith("encoder.") for k in named}  # noqa: E731
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Trainer(cfg, freeze_mask_fn=freeze).fit(model, coords, values)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        predict_batched(model, coords)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        launcher.main(["--image_path", str(tmp_path / "absent.nii.gz"), "--output_root", str(tmp_path / "runs"),
+                       "--checkpoint_path", str(tmp_path / "ck"), "--remat", "true", "--eval_every_epochs", "1",
+                       "--lr_schedule", "cosine", "--accumulate_grad_batches", "2"])
+    assert list(tmp_path.iterdir()) == []
+    multi = make_multi_hash_mlp(n_levels=2, log2_hashmap_size=8, dim_hidden=8, device="cpu", **MULTI)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Trainer(cfg, freeze_mask_fn=lambda named: {k: True for k in named}).fit_frames(
+            multi, coords[:16, :2], np.zeros((2, 16, 1), dtype=np.float32))
+    with pytest.raises(ValueError, match="CUDA device"):
+        pr.launch_empty(torch.device("cpu"))
+    # the CPU, when asked for, works, and launches nothing
+    he.reset_launches()
+    fm.reset_launches()
+    res = Trainer(cfg, freeze_mask_fn=freeze).fit(model, coords, values, device="cpu")
+    assert res.steps == 8 and int(model.anneal_step) == 8 and sorted(os.listdir(tmp_path / "ck")) == [
+        "step_4.pt", "step_8.pt"]
+    assert predict_batched(model, coords, device="cpu").shape == (64, 1)
     assert set(he.LAUNCHES.values()) == {0} and set(fm.LAUNCHES.values()) == {0}
 
 

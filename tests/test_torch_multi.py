@@ -163,15 +163,6 @@ def test_fit_frames_on_cpu_launches_no_kernel():
     assert set(he.LAUNCHES.values()) == {0} and set(fm.LAUNCHES.values()) == {0}
 
 
-def test_fit_frames_refuses_unported_options():
-    _, _, _, tm = _pair("siren")
-    coords, values = _frames("siren")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Trainer(TrainConfig(epochs=1, lr_schedule="cosine")).fit_frames(tm, coords, values, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Trainer(TrainConfig(epochs=1, accumulate_grad_batches=2)).fit_frames(tm, coords, values, device="cpu")
-
-
 def test_launcher_runs_a_multi_model_as_the_jax_launcher_does(tmp_path):
     """``--model_class multi_hash_mlp`` goes through build_model and
     Trainer.fit, the model answering frame 0 (no branch of its own)."""

@@ -117,12 +117,6 @@ def test_relative_l2_loss_matches_jax(dataset):
     np.testing.assert_allclose(tres.losses, np.asarray(jres.losses), rtol=RTOL)
 
 
-@pytest.mark.parametrize("kwargs", [dict(lr_schedule="cosine"), dict(accumulate_grad_batches=2)])
-def test_unported_optimizer_options_raise(kwargs):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_optimizer(TrainConfig(**kwargs), [torch.nn.Parameter(torch.zeros(1))])
-
-
 def test_unknown_optimizer_and_loss_raise(dataset):
     with pytest.raises(KeyError):
         make_optimizer(TrainConfig(optimizer="sgd"), [torch.nn.Parameter(torch.zeros(1))])
