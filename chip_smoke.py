@@ -28,7 +28,9 @@ Phases, each printed with its time as it ends:
    kernel 5 on the three stacks at their grid inputs; kernels 1-2 on the
    NGP geometry, 3 dense levels x F = 8, and kernels 5-6 on its relu
    24-64-1 decoder, at a training batch and a grid chunk, x in [0, 1] and
-   in [-1, 1]), with times (the
+   in [-1, 1]; kernels 1-2 on hash_siren's encoder at N = 20,000, x in
+   [-1, 1], and on the temporal protocol's at N = 10,000; kernels 5-6 on
+   the protocol's relu 16-64-1 decoder), with times (the
    profiler's device time, or CUDA events over a CUDA graph where it records
    none; kernel 5's forward rows hold its split prologue and its forward
    kernel), bounds (for kernels 5-6 also the 3xTF32 tensor-core bound) and
@@ -40,13 +42,14 @@ Phases, each printed with its time as it ends:
    with cosine and gradient accumulation, the flagship with a freeze mask
    and weight decay, with the level anneal and the temporal TV, and with
    remat (held also to the card's fit without remat, BatchNorm statistics
-   and the anneal counter included), and ``fit_frames`` with cosine and
-   accumulation;
+   and the anneal counter included), ``fit_frames`` with cosine and
+   accumulation, and the modulated, hash and PSF SIRENs;
 5. main paths, each with the launch counters set to 0 just before it and
    read just after:
    - flagship: ``launcher.run`` with the defaults on a synthetic
      (352, 352, 15) volume (1 epoch = 185 steps at batch 10,000, then the
-     (352, 352, 30) interpolation grid);
+     (352, 352, 30) interpolation grid; its all-dense encoder takes the
+     separable grid path, so kernel 1 runs in training only);
    - path A: ``launcher.main`` with ``--config_preset siren`` (SIREN
      3 -> 128 x 6 -> 1, batch 4096: 453 steps, then the grids);
    - path B: ``launcher.main`` with the tcnn flags (16 levels x 2 features,
@@ -71,9 +74,26 @@ Phases, each printed with its time as it ends:
      step;
    - flagship_anneal: ``launcher.run`` with the flagship defaults and a
      92-step level anneal, whose launches are the flagship's;
+   - protocol_tv: ``launcher.main --even_frames_only true --save_latents
+     true`` with the temporal protocol's flags (``scripts/experiments.py:
+     267-273``: 4 dense levels x F = 4, paper growth, relu_plain 16 -> 64 ->
+     1, temporal TV 0.01, ``adam_tcnn``, lr 1e-2, cosine, weight decay 1e-5):
+     99 steps on the 8 even frames, then the grids by the separable path;
+     the odd frames' PSNR and SSIM, and ``latents.nii.gz`` (352, 352, 15, 16);
+   - hash_siren (64x4, 10 levels, batch 20,000, zero-centred: 92 steps,
+     kernel 1 on every grid chunk), modulated_siren (256x4, batch 20,000:
+     92 steps) and psf_siren (256x5, 5^3 PSF points, batch 4096: 453 steps
+     of 512,000-row plain forwards; its spacing checked);
+   - flagship_undersample: the flagship on the 10% of the voxels that
+     seed 1337's mask keeps (kept // 10,000 steps);
+   - grid routes: the flagship's and ngp's fitted models on the (352, 352,
+     30) grid by the separable path and by kernel 1 per chunk (``transform=
+     lambda x: x``), held to each other (atol 1e-4 / 1e-5), their device
+     and wall times, and ``transport="u16"`` within one step of f32;
 6. profile: device time by kernel over 20 training steps of each path (one
    epoch of 15 frames for the multi-frame models) and one grid evaluation
-   of the flagship, paths A and B and ngp (torch.profiler).
+   of the flagship, paths A and B, ngp, protocol_tv and hash_siren
+   (torch.profiler).
 
 The last two lines are the kernels' JSON line and
 ``{"ok": true, "device": {...}}``. Any failed phase exits non-zero before
@@ -143,6 +163,29 @@ NGP_FLAGS = ["--n_levels", "3", "--n_features_per_level", "8", "--log2_hashmap_s
              "--dim_hidden", "64", "--n_layers", "2", "--decoder", "relu_plain", "--optimizer", "adam_tcnn",
              "--lr", "1e-2", "--batch_size", "10000"]
 NGP_STEPS = 185  # one epoch of (352, 352, 15) at batch 10,000
+GRID_CHUNKS = -(-352 * 352 * 30 // (1 << 17))  # 29: the interpolation grid's chunks on the per-chunk route
+# the temporal protocol's HashMLP (RESULTS.md:32, scripts/experiments.py:267-273): full time resolution and
+# temporal TV, trained on the even frames; 4 dense levels x F=4, paper growth, relu_plain 16 -> 64 -> 1
+PROTOCOL = dict(n_levels=4, n_features_per_level=4, log2_hashmap_size=23, base_resolution=(64, 64, 2),
+                finest_resolution=(352, 352, 15), growth="paper")
+PROTOCOL_FLAGS = ["--n_levels", "4", "--n_features_per_level", "4", "--log2_hashmap_size", "23",
+                  "--base_resolution", "64,64,2", "--finest_resolution", "352,352,15", "--growth", "paper",
+                  "--dim_hidden", "64", "--n_layers", "2", "--decoder", "relu_plain", "--temporal_tv", "0.01",
+                  "--optimizer", "adam_tcnn", "--lr", "1e-2", "--lr_schedule", "cosine", "--cosine_t_max", "1",
+                  "--weight_decay", "1e-5", "--batch_size", "10000", "--even_frames_only", "true",
+                  "--save_latents", "true"]
+# hash_siren 64x4 (scripts/experiments.py:200-203): 10 levels x F=2, log2 17, 921,464 rows, levels 0-3 dense
+HASH_SIREN = dict(dim=3, n_levels=10, n_features_per_level=2, log2_hashmap_size=17, base_resolution=16,
+                  finest_resolution=None, per_level_scale=1.4)
+HASH_SIREN_FLAGS = ["--model_class", "hash_siren", "--zero_centered", "true", "--n_levels", "10",
+                    "--n_features_per_level", "2", "--log2_hashmap_size", "17", "--base_resolution", "16",
+                    "--per_level_scale", "1.4", "--dim_hidden", "64", "--n_layers", "4", "--batch_size", "20000",
+                    "--lr", "1e-4"]
+# modulated_siren 256x4 (experiments.py:122-126) and psf_siren 256x5 with 5^3 PSF points (experiments.py:191-195)
+MODULATED_FLAGS = ["--model_class", "modulated_siren", "--zero_centered", "true", "--dim_hidden", "256",
+                   "--n_layers", "4", "--batch_size", "20000", "--lr", "1e-4"]
+PSF_FLAGS = ["--model_class", "psf_siren", "--zero_centered", "true", "--dim_hidden", "256", "--n_layers", "5",
+             "--n_sample", "5", "--batch_size", "4096", "--lr", "1e-4"]
 TCNN_FLAGS = ["--n_levels", "16", "--n_features_per_level", "2", "--log2_hashmap_size", "19",
               "--base_resolution", "16", "--per_level_scale", "1.4", "--dim_hidden", "128", "--n_layers", "2",
               "--decoder", "relu_plain", "--lr", "1e-2", "--optimizer", "adam_tcnn"]
@@ -462,6 +505,38 @@ def check_ngp_hash_kernels(torch, he, dev) -> dict:
     return rows
 
 
+def check_slice_hash_kernels(torch, he, dev) -> dict:
+    """Kernels 1 and 2 on the held-out-frame paths' encoders, a table drawn
+    U(-1, 1): hash_siren's (10 levels x F = 2, 921,464 rows, levels 0-3
+    dense) at its training batch, N = 20,000, and at its grid chunk, N =
+    131,072 (hash_siren has no encode/decode split, so its grid launches
+    kernel 1 per chunk), both with x in [-1, 1] (the clamped coordinates
+    ``--zero_centered`` sends), and the temporal protocol's (4 dense levels
+    x F = 4, 2,252,886 rows) at N = 10,000, x in [0, 1]; returns per-kernel
+    rows."""
+    from mri_interpolation_tpu_torch.encodings import HashGridEncoding
+
+    gen = torch.Generator(device="cpu").manual_seed(11)
+    rows = {"hash_encode_forward": [], "hash_encode_table_grad": []}
+    hash_siren, protocol = HashGridEncoding(**HASH_SIREN), HashGridEncoding(dim=3, **PROTOCOL)
+    tables = {}
+    for geometry, enc, n, lo, what in (("hash_siren", hash_siren, 20_000, -1.0, "train batch"),
+                                       ("hash_siren", hash_siren, 1 << 17, -1.0, "grid chunk"),
+                                       ("protocol", protocol, 10_000, 0.0, "train batch")):
+        log(f"[kernels] {geometry}: {enc.total_size:,d} rows x F={enc.n_features_per_level}, dense "
+            f"{enc.level_dense.tolist()}, plan at N={n:,d} {he.table_grad_plan(enc, n)}")
+        if geometry not in tables:
+            tables[geometry] = (torch.rand((enc.total_size, enc.n_features_per_level), generator=gen) * 2 - 1).to(dev)
+        x = torch.rand((n, 3), generator=gen) * (1.0 - lo) + lo
+        x[0], x[1] = lo, 1.0
+        g = torch.randn((n, enc.output_dim), generator=gen)
+        label = f"{what}, x in [{lo:g}, 1]"
+        for name, row in encoder_rows(torch, he, enc, tables[geometry], x.to(dev), g.to(dev), label,
+                                      geometry).items():
+            rows[name].append(row)
+    return rows
+
+
 def check_coarse_kernels(torch, he, dev):
     """Kernels 3 and 4 against their plain versions on three geometries: the
     multi-frame HashMLP's levels 0-3 at one 352 x 352 frame (the main row;
@@ -633,6 +708,7 @@ def check_fused_mlp(torch, fm, dev):
     gelu_layers = [{"w": (torch.rand((k, n), generator=gen) - 0.5).to(dev) / 4,
                     "b": (torch.rand((n,), generator=gen) - 0.5).to(dev) / 4} for k, n in ((16, 64), (64, 64), (64, 2))]
     ngp_layers = [{k: v.to(dev) for k, v in dense_init(k, n, gen).items()} for k, n in ((24, 64), (64, 1))]
+    protocol_layers = [{k: v.to(dev) for k, v in dense_init(k, n, gen).items()} for k, n in ((16, 64), (64, 1))]
     wide_layers = [{"w": (torch.rand((k, n), generator=gen) - 0.5).to(dev) / math.sqrt(k),
                     "b": (torch.rand((n,), generator=gen) - 0.5).to(dev) / math.sqrt(k)} for k, n in ((8, 832), (832, 3))]
 
@@ -660,6 +736,9 @@ def check_fused_mlp(torch, fm, dev):
         # the NGP HashMLP's relu 24-64-1 decoder (kernel 2's dx feeds it the table gradient)
         ("ngp train step", ngp_layers, fm.mlp_acts(1, "relu"), 10_000, -1.0, True, True),
         ("ngp grid chunk", ngp_layers, fm.mlp_acts(1, "relu"), 1 << 17, -1.0, False, False),
+        # the temporal protocol's relu 16-64-1 decoder: its training step (dx into kernel 2) and a grid chunk
+        ("protocol step", protocol_layers, fm.mlp_acts(1, "relu"), 10_000, -1.0, True, True),
+        ("protocol grid chunk", protocol_layers, fm.mlp_acts(1, "relu"), 1 << 17, -1.0, False, False),
     ]
     rows = {"fused_mlp_forward": [], "fused_mlp_backward": []}
     with torch.no_grad():
@@ -898,9 +977,11 @@ def remat_matches_plain(torch, make_model, base: dict) -> float:
 
 
 def small_fits(torch) -> dict:
-    from mri_interpolation_tpu_torch.models import make_hash_mlp, make_siren
+    from mri_interpolation_tpu_torch.models import (make_hash_mlp, make_hash_siren, make_modulated_siren,
+                                                    make_psf_siren, make_siren)
     from mri_interpolation_tpu_torch.train import TrainConfig
 
+    siren_cfg = TrainConfig(batch_size=200, epochs=1, lr=1e-4, shuffle=False)
     flagship = dict(base_resolution=(4, 4, 2), finest_resolution=(16, 16, 8), dim_hidden=16, seed=5)
     tcnn = dict(n_levels=8, n_features_per_level=2, log2_hashmap_size=12, base_resolution=4, per_level_scale=1.5,
                 dim_hidden=64, n_layers=2, decoder="relu_plain", seed=5)
@@ -914,6 +995,19 @@ def small_fits(torch) -> dict:
         "relu_plain": small_fit_matches_cpu(torch, "relu_plain", lambda d: make_hash_mlp(3, device=d, **tcnn),
                                             TrainConfig(batch_size=200, epochs=1, lr=1e-2, shuffle=False,
                                                         optimizer="adam_tcnn")),
+        # the SIREN family: plain tensor code, and kernels 1-2 for hash_siren's encoder (coordinates in [0, 1]:
+        # the clamped extrapolation of [-1, 1] with a U(-0.5, 0.5) table leaves the curves ill-conditioned)
+        "modulated_siren": small_fit_matches_cpu(
+            torch, "modulated_siren", lambda d: make_modulated_siren(3, dim_hidden=64, n_layers=3, device=d, seed=5),
+            siren_cfg, zero_centered=True),
+        "hash_siren": small_fit_matches_cpu(
+            torch, "hash_siren", lambda d: make_hash_siren(3, dim_hidden=32, n_layers=3, n_levels=6,
+                                                           log2_hashmap_size=12, base_resolution=4,
+                                                           per_level_scale=1.5, device=d, seed=5), siren_cfg),
+        "psf_siren": small_fit_matches_cpu(
+            torch, "psf_siren", lambda d: make_psf_siren(3, dim_hidden=64, n_layers=3, n_sample=3, device=d, seed=5,
+                                                         coordinates_spacing=(0.5 / 15, 0.5 / 15, 0.5 / 7)),
+            siren_cfg, zero_centered=True),
     }
 
 
@@ -1054,7 +1148,9 @@ def drive_path(name: str, kind: str, fn, steps: int, batch: int, expected: dict)
            # per layer: the trainer's loop alone, the hooks' scalars, eval and checkpoints apart
            "steps_per_s_without_hooks": steps / (train_s - hook_s), "recon_eval_s": summary["recon_eval_s"],
            "grid_eval_s": grid_s, "grid_voxels_per_s": float(np.prod(GRID)) / grid_s, "psnr": summary["psnr"],
-           "ssim": summary["ssim"], "final_loss": summary["final_loss"], "wall_s": seconds, "launches": launches}
+           "ssim": summary["ssim"], "final_loss": summary["final_loss"], "wall_s": seconds, "launches": launches,
+           "train_voxels": summary["train_voxels"],
+           **{k: v for k, v in summary.items() if k.startswith("odd_") or k == "coordinates_spacing"}}
     log(f"[{name}] {kind}: {steps} steps in {train_s:.3f} s = {out['steps_per_s']:.1f} steps/s, "
         f"{out['train_voxel_evals_per_s']:,.0f} training voxel-evals/s; epoch hooks {hook_s:.3f} s of it "
         f"({out['steps_per_s_without_hooks']:.1f} steps/s without them)")
@@ -1130,13 +1226,14 @@ def drive_ngp_paths(path: str, tmp: str, zero: dict, paths: dict) -> None:
     from mri_interpolation_tpu_torch.train import restore_checkpoint
 
     grid = ["--image_path", path, "--interp_shapes", str(GRID)]
-    # NGP paper+cosine: 2 epochs, the cosine over both; per epoch one eval forward of 103,254 voxels
+    # NGP paper+cosine: 2 epochs, the cosine over both; per epoch one eval forward of 103,254 voxels; its
+    # all-dense encoder takes the separable grid path (no kernel 1 on the grids, kernel 5 on every chunk)
     paths["ngp"] = drive_path(
         "ngp", "launcher.main, NGP 3-level F=8 paper+cosine",
         lambda: cli(launcher, [*NGP_FLAGS, "--lr_schedule", "cosine", "--cosine_t_max", "2", "--epochs", "2",
                                "--eval_every_epochs", "1", "--checkpoint_every_epochs", "1",
                                "--output_root", os.path.join(tmp, "ngp"), *grid]),
-        2 * NGP_STEPS, 10_000, {**zero, "hash_encode_forward": 2 * NGP_STEPS + 2 + CHUNKS,
+        2 * NGP_STEPS, 10_000, {**zero, "hash_encode_forward": 2 * NGP_STEPS + 2,
                                 "hash_encode_table_grad": 2 * NGP_STEPS,
                                 "fused_mlp_forward": 2 * NGP_STEPS + 2 + CHUNKS,
                                 "fused_mlp_backward": 2 * NGP_STEPS, "probe": 1})
@@ -1148,7 +1245,7 @@ def drive_ngp_paths(path: str, tmp: str, zero: dict, paths: dict) -> None:
         lambda: cli(launcher, [*NGP_FLAGS, "--checkpoint_path", ngp_ckpt, "--epochs", "1",
                                "--accumulate_grad_batches", "2", "--remat", "true", "--temporal_tv", "1e-3",
                                "--output_root", os.path.join(tmp, "ngp_resume"), *grid]),
-        NGP_STEPS, 10_000, {**zero, "hash_encode_forward": 2 * NGP_STEPS + CHUNKS,
+        NGP_STEPS, 10_000, {**zero, "hash_encode_forward": 2 * NGP_STEPS,
                             "hash_encode_table_grad": NGP_STEPS, "fused_mlp_forward": 2 * NGP_STEPS + CHUNKS,
                             "fused_mlp_backward": NGP_STEPS, "probe": 1})
     check_ngp_resume(paths["ngp_resume"], paths["ngp"], ngp_ckpt)
@@ -1162,6 +1259,115 @@ def drive_ngp_paths(path: str, tmp: str, zero: dict, paths: dict) -> None:
                   ["model"]["anneal_step"])
     if counter != NGP_STEPS:
         fail(f"flagship_anneal: anneal counter {counter} after {NGP_STEPS} steps")
+
+
+def drive_held_out_paths(path: str, tmp: str, zero: dict, paths: dict) -> None:
+    """Phase 5's paths of the held-out-frame slice, each with the counters
+    at 0 just before it and read just after, on the volume at ``path``:
+    protocol_tv (the temporal protocol's HashMLP on the 8 even frames, its
+    latents saved; scored on the 7 odd ones), hash_siren, modulated_siren,
+    psf_siren, and flagship_undersample (the flagship on the 10% of the
+    voxels that the seed's mask keeps)."""
+    from mri_interpolation_tpu_torch import launcher
+    from mri_interpolation_tpu_torch.configs import RunConfig
+    from mri_interpolation_tpu_torch.io import nifti
+    from mri_interpolation_tpu_torch.utils import create_rn_mask
+
+    grid = ["--image_path", path, "--interp_shapes", str(GRID), "--epochs", "1"]
+    n = int(np.prod(VOLUME))
+    even = n // VOLUME[-1] * ((VOLUME[-1] + 1) // 2)  # the even frames' voxels
+    steps = even // 10_000  # 99 on the (352, 352, 15) volume
+    # the separable grid path: kernel 1 in training only, kernel 5 on every chunk of both grids
+    paths["protocol_tv"] = out = drive_path(
+        "protocol_tv", "launcher.main, temporal protocol (even frames, temporal TV, latents)",
+        lambda: cli(launcher, [*PROTOCOL_FLAGS, "--output_root", os.path.join(tmp, "protocol"), *grid]),
+        steps, 10_000, {**zero, "hash_encode_forward": steps, "hash_encode_table_grad": steps,
+                        "fused_mlp_forward": steps + CHUNKS, "fused_mlp_backward": steps, "probe": 1})
+    latents = nifti.load(os.path.join(out["run_dir"], "latents.nii.gz"))
+    if latents.shape != VOLUME + (16,) or not all(math.isfinite(out[k]) for k in ("odd_psnr", "odd_ssim")):
+        fail(f"protocol_tv: latents {latents.shape}, odd PSNR {out.get('odd_psnr')} / SSIM {out.get('odd_ssim')}")
+    if out["train_voxels"] != even:
+        fail(f"protocol_tv: {out['train_voxels']} training voxels, not the even frames' {even}")
+    log(f"[protocol_tv] held-out odd frames: PSNR {out['odd_psnr']:.3f} dB, SSIM {out['odd_ssim']:.4f}; "
+        f"latents {latents.shape}")
+    # hash_siren has no encode/decode split: kernel 1 on every grid chunk, on x in [-1, 1]
+    paths["hash_siren"] = drive_path(
+        "hash_siren", "launcher.main, hash SIREN 64x4 (10 levels)",
+        lambda: cli(launcher, [*HASH_SIREN_FLAGS, "--output_root", os.path.join(tmp, "hash_siren"), *grid]),
+        n // 20_000, 20_000, {**zero, "hash_encode_forward": n // 20_000 + CHUNKS,
+                              "hash_encode_table_grad": n // 20_000, "probe": 1})
+    paths["modulated_siren"] = drive_path(
+        "modulated_siren", "launcher.main, modulated SIREN 256x4",
+        lambda: cli(launcher, [*MODULATED_FLAGS, "--output_root", os.path.join(tmp, "modulated"), *grid]),
+        n // 20_000, 20_000, {**zero, "probe": 1})
+    paths["psf_siren"] = out = drive_path(
+        "psf_siren", "launcher.main, PSF SIREN 256x5 (5^3 points: 512,000-row forwards)",
+        lambda: cli(launcher, [*PSF_FLAGS, "--output_root", os.path.join(tmp, "psf"), *grid]),
+        n // 4096, 4096, {**zero, "probe": 1})
+    want = [0.5 / (s - 1) for s in VOLUME]
+    if out.get("coordinates_spacing") != want:
+        fail(f"psf_siren: spacing {out.get('coordinates_spacing')}, expected {want}")
+    log(f"[psf_siren] coordinates_spacing {out['coordinates_spacing']}")
+    _, kept = create_rn_mask((n,), 10.0, key=1337)
+    batch = min(10_000, len(kept))
+    steps = len(kept) // batch
+    paths["flagship_undersample"] = out = drive_path(
+        "flagship_undersample", "launcher.run, flagship on 10% of the voxels",
+        lambda: launcher.run(RunConfig(image_path=path, output_root=os.path.join(tmp, "undersample"), epochs=1,
+                                       interp_shapes=(GRID,), undersample_pct=10.0)),
+        steps, batch, {**zero, "hash_encode_forward": steps, "hash_encode_table_grad": steps, "probe": 1})
+    if out["train_voxels"] != len(kept):
+        fail(f"flagship_undersample: {out['train_voxels']} training voxels, the seed's mask keeps {len(kept)}")
+    log(f"[flagship_undersample] {len(kept):,d} of {n:,d} voxels kept ({100 * len(kept) / n:.3f}%)")
+
+
+def check_grid_routes(paths: dict) -> dict:
+    """The flagship's and ngp's fitted models, reloaded from their runs'
+    checkpoints, on the (352, 352, 30) grid by both routes: the separable
+    path, and kernel 1 per chunk (reached through ``transform=lambda x: x``,
+    which turns the separable path off as in the JAX package), held to atol
+    1e-4 (the flagship: eval-mode BatchNorm divides by running deviations)
+    and 1e-5 (ngp's relu decoder); each route's ``device_eval_seconds`` and
+    wall (one ``evaluate_grid`` after it) and its kernel-1 launches (0 and 29);
+    and ``transport="u16"`` within one step, (max - min) / 65535, of f32."""
+    from mri_interpolation_tpu_torch.infer import device_eval_seconds, evaluate_grid
+    from mri_interpolation_tpu_torch.models import make_hash_mlp
+    from mri_interpolation_tpu_torch.train import restore_checkpoint
+
+    out = {}
+    # (path, model flags, atol, kernel-5 launches a grid: the flagship's norm decoder is plain torch)
+    for name, kw, atol, k5 in (("flagship", {}, 1e-4, 0), ("ngp", NGP, 1e-5, GRID_CHUNKS)):
+        model = make_hash_mlp(3, **kw)
+        model.load_state_dict(restore_checkpoint(os.path.join(paths[name]["run_dir"], "checkpoints"))["model"])
+        routes, vols = {}, {}
+        for route, transform, k1 in (("separable", None, 0), ("kernel 1 per chunk", lambda x: x, GRID_CHUNKS)):
+            device_s = device_eval_seconds(model, GRID, transform=transform)
+            reset_counts()
+            t0 = time.perf_counter()
+            vols[route] = evaluate_grid(model, GRID, transform=transform)
+            wall = time.perf_counter() - t0
+            launches = read_counts()
+            if launches["hash_encode_forward"] != k1 or launches["fused_mlp_forward"] != k5:
+                fail(f"grid routes {name} {route}: launches {launches}")
+            routes[route] = {"device_s": device_s, "wall_s": wall, "device_voxels_per_s": np.prod(GRID) / device_s,
+                             "voxels_per_s": np.prod(GRID) / wall}
+        err = float(np.abs(vols["separable"] - vols["kernel 1 per chunk"]).max())
+        if not math.isfinite(err) or err > atol:
+            fail(f"grid routes {name}: the separable and per-chunk volumes differ by {err} > {atol}")
+        f32 = vols["separable"]
+        u16 = evaluate_grid(model, GRID, transport="u16")
+        step = float(f32.max() - f32.min()) / 65535.0
+        uerr = float(np.abs(u16 - f32).max())
+        if not math.isfinite(uerr) or uerr > step:
+            fail(f"grid routes {name}: u16 differs from f32 by {uerr} > one step {step}")
+        out[name] = {"routes": routes, "max_abs_diff": err, "atol": atol, "u16_max_abs_err": uerr, "u16_step": step}
+        for route, r in routes.items():
+            log(f"[grid routes] {name} {route}: device {r['device_s'] * 1e3:.3f} ms "
+                f"({r['device_voxels_per_s']:,.0f} voxels/s), wall {r['wall_s'] * 1e3:.3f} ms "
+                f"({r['voxels_per_s']:,.0f} voxels/s)")
+        log(f"[grid routes] {name}: routes differ by {err:.3e} (atol {atol:g}); u16 error {uerr:.3e} "
+            f"(step {step:.3e})")
+    return out
 
 
 def drive_frames(name: str, make_model, cfg, img, zero_centered: bool, expected: dict) -> dict:
@@ -1253,14 +1459,17 @@ def cli(launcher, argv):
 
 def profile_main_paths(torch) -> None:
     """Print device time by kernel over 20 training steps of each path (per
-    step; one epoch of 15 frames for the multi-frame models), one
-    (352, 352, 30) grid evaluation of the flagship, paths A and B and ngp, and the 15
-    (352, 352) frame grids of the multi-frame HashMLP (per frame), each under
+    step; one epoch of 15 frames for the multi-frame models; protocol_tv's
+    on the first 200,000 voxels, not its even frames), one (352, 352, 30)
+    grid evaluation of the flagship, paths A and B, ngp, protocol_tv and
+    hash_siren, and the 15 (352, 352) frame grids of the multi-frame
+    HashMLP (per frame), each under
     torch.profiler (which slows the host, so the busy shares are lower
     bounds)."""
     from mri_interpolation_tpu_torch.infer import evaluate_grid
     from mri_interpolation_tpu_torch.io import dataset_from_array, synthetic_volume
-    from mri_interpolation_tpu_torch.models import make_hash_mlp, make_multi_hash_mlp, make_multi_siren, make_siren
+    from mri_interpolation_tpu_torch.models import (make_hash_mlp, make_hash_siren, make_multi_hash_mlp,
+                                                    make_multi_siren, make_psf_siren, make_siren)
     from mri_interpolation_tpu_torch.train import TrainConfig, Trainer
 
     ds = dataset_from_array(synthetic_volume(VOLUME, seed=0))
@@ -1274,6 +1483,10 @@ def profile_main_paths(torch) -> None:
     tcnn = make_hash_mlp(3, n_levels=16, n_features_per_level=2, log2_hashmap_size=19, base_resolution=16,
                          per_level_scale=1.4, dim_hidden=128, n_layers=2, decoder="relu_plain")
     ngp = make_hash_mlp(3, **NGP)
+    protocol = make_hash_mlp(3, dim_hidden=64, n_layers=2, decoder="relu_plain", temporal_tv=0.01, **PROTOCOL)
+    hash_siren = make_hash_siren(3, dim_hidden=64, n_layers=4,
+                                 **{k: v for k, v in HASH_SIREN.items() if k not in ("dim", "finest_resolution")})
+    psf = make_psf_siren(3, dim_hidden=256, n_layers=5, coordinates_spacing=[0.5 / (s - 1) for s in VOLUME])
     fit = lambda model, d, cfg, n: lambda: Trainer(cfg).fit(model, d.coords[:n], d.values[:n])  # noqa: E731
     phases = (
         ("flagship train_step", fit(flagship, ds, TrainConfig(epochs=1), 200_000), 20),
@@ -1281,10 +1494,16 @@ def profile_main_paths(torch) -> None:
         ("path B train_step", fit(tcnn, ds, TrainConfig(lr=1e-2, optimizer="adam_tcnn"), 200_000), 20),
         ("ngp train_step", fit(ngp, ds, TrainConfig(lr=1e-2, optimizer="adam_tcnn", lr_schedule="cosine",
                                                     cosine_t_max=2), 200_000), 20),
-        ("flagship grid_eval_352x352x30", lambda: evaluate_grid(flagship, GRID), 1),
+        ("protocol_tv train_step", fit(protocol, ds, TrainConfig(lr=1e-2, optimizer="adam_tcnn", weight_decay=1e-5,
+                                                                 lr_schedule="cosine", cosine_t_max=1), 200_000), 20),
+        ("hash_siren train_step", fit(hash_siren, zc, TrainConfig(batch_size=20_000, lr=1e-4), 400_000), 20),
+        ("psf_siren train_step", fit(psf, zc, TrainConfig(batch_size=4096, lr=1e-4), 20 * 4096), 20),
+        ("flagship grid_eval_352x352x30 (separable)", lambda: evaluate_grid(flagship, GRID), 1),
+        ("protocol_tv grid_eval_352x352x30 (separable)", lambda: evaluate_grid(protocol, GRID), 1),
+        ("hash_siren grid_eval_352x352x30", lambda: evaluate_grid(hash_siren, GRID, lo=-1.0), 1),
         ("path A grid_eval_352x352x30", lambda: evaluate_grid(siren, GRID, lo=-1.0), 1),
         ("path B grid_eval_352x352x30", lambda: evaluate_grid(tcnn, GRID), 1),
-        ("ngp grid_eval_352x352x30", lambda: evaluate_grid(ngp, GRID), 1),
+        ("ngp grid_eval_352x352x30 (separable)", lambda: evaluate_grid(ngp, GRID), 1),
         ("multi_hash_mlp train_step", lambda: Trainer(TrainConfig(lr=5e-3)).fit_frames(
             multi_hash, frame_coords, frame_values), 15),
         ("multi_siren train_step", lambda: Trainer(TrainConfig(lr=1e-4)).fit_frames(
@@ -1364,6 +1583,8 @@ def main() -> int:
         rows.setdefault(name, []).extend(krows)
     for name, krows in check_ngp_hash_kernels(torch, he, dev).items():
         rows[name].extend(krows)
+    for name, krows in check_slice_hash_kernels(torch, he, dev).items():
+        rows[name].extend(krows)
     rows.update(check_fused_mlp(torch, fm, dev))
     for name, krows in check_grid_frames(torch, he, fm, dev).items():
         rows[name].extend(krows)
@@ -1391,7 +1612,7 @@ def main() -> int:
             "main", "launcher.run, flagship HashMLP",
             lambda: launcher.run(RunConfig(image_path=path, output_root=os.path.join(tmp, "flagship"), epochs=1,
                                            interp_shapes=(GRID,))),
-            185, 10_000, {**zero, "hash_encode_forward": 185 + CHUNKS, "hash_encode_table_grad": 185, "probe": 1})
+            185, 10_000, {**zero, "hash_encode_forward": 185, "hash_encode_table_grad": 185, "probe": 1})
         paths["A"] = drive_path(
             "path A", "launcher.main --config_preset siren",
             lambda: cli(launcher, ["--config_preset", "siren", "--output_root", os.path.join(tmp, "a"), *common]),
@@ -1402,6 +1623,8 @@ def main() -> int:
             185, 10_000, {**zero, "hash_encode_forward": 185 + CHUNKS, "hash_encode_table_grad": 185,
                           "fused_mlp_forward": 185 + CHUNKS, "fused_mlp_backward": 185, "probe": 1})
         drive_ngp_paths(path, tmp, zero, paths)
+        drive_held_out_paths(path, tmp, zero, paths)
+        check_grid_routes(paths)
 
     # the kernel bench: each timed call runs once to check, 3 times to warm up, ITERS times timed
     calls = 1 + 3 + bench_kernels.ITERS

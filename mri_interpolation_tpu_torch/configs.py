@@ -38,8 +38,8 @@ class RunConfig:
     # --- data
     image_path: str = "sample_ankle_dyn_mri.nii.gz"
     slice_z: Optional[int] = None        # take the (x, y, t) slice at this z
-    even_frames_only: bool = False       # not ported yet (ROADMAP.md)
-    undersample_pct: float = 0.0         # not ported yet (ROADMAP.md)
+    even_frames_only: bool = False       # train on the even frames, score the held-out odd ones
+    undersample_pct: float = 0.0         # >0: train on this % of the voxels, kept at random (seed)
     zero_centered: bool = False          # coords/values in [-1, 1]
 
     # --- training
@@ -66,6 +66,7 @@ class RunConfig:
     w0: float = 30.0
     w0_initial: float = 30.0
     sigma: float = 6.0
+    n_sample: int = 5                    # psf_siren: PSF points per axis
 
     # --- hash encoding
     n_levels: int = 4
@@ -87,7 +88,7 @@ class RunConfig:
     save_checkpoint: bool = True
     checkpoint_every_epochs: int = 0     # >0: also checkpoint every k epochs
     eval_every_epochs: int = 0           # >0: eval PSNR into scalars.jsonl every k epochs
-    save_latents: bool = False           # not ported yet (ROADMAP.md)
+    save_latents: bool = False           # write the encoder features (latents.nii.gz) of a split model
     tb_events: bool = False              # not ported yet (ROADMAP.md)
     remat: bool = False                  # recompute the forward in the backward (memory for FLOPs)
 
@@ -99,6 +100,7 @@ class RunConfig:
             "w0": self.w0,
             "w0_initial": self.w0_initial,
             "sigma": self.sigma,
+            "n_sample": self.n_sample,
             "lr": self.lr,
             "n_levels": self.n_levels,
             "n_features_per_level": self.n_features_per_level,

@@ -18,6 +18,10 @@ Semantics kept from the reference:
   fold, modulo the level size. Here it runs in int64 masked to 32 bits,
   because torch's CPU ``%`` is not implemented for uint32.
 
+``apply_grid`` encodes a regular axis-aligned grid of an all-dense encoding
+one axis at a time (two slab gathers and a lerp per axis), in plain tensor
+code as the JAX original is plain XLA; ``infer/grid.py`` dispatches to it.
+
 ``temporal_table_tv`` is the time-axis smoothness prior of the HashMLP's
 ``temporal_tv`` option, in plain tensor code (the JAX package has no kernel
 for it either).
@@ -165,6 +169,47 @@ class HashGridEncoding:
             out[l, 9] = self.level_offsets[l]
             out[l, 10] = int(self.level_dense[l])
         return (out & _MASK32).astype(np.uint32).view(np.int32)
+
+    def supports_grid_path(self) -> bool:
+        """True when every level is dense: the separable regular-grid
+        evaluation (:meth:`apply_grid`) covers the whole encoding."""
+        return bool(self.level_dense.all())
+
+    def apply_grid(self, table: torch.Tensor, out_shape: Sequence[int], lo: float = 0.0,
+                   hi: float = 1.0) -> torch.Tensor:
+        """Encode the regular grid ``linspace(lo, hi, s)`` per axis of
+        ``out_shape``: (prod(out_shape), L*F) in logical level order, row r
+        the encoding of row r of ``infer.flat_index_to_coords``.
+
+        Multilinear interpolation on a regular grid is separable: each dense
+        level's vertex grid (its rows viewed as the C-ordered ``(verts..., F)``
+        array, which :meth:`vertex_strides` describes) is resampled one axis
+        at a time, with the per-point arithmetic of
+        :meth:`corner_ids_and_weights`: ``scaled = x * res``, the cell index
+        its truncation clamped to ``[0, res - 1]``, the weight ``scaled - xi``.
+        Needs all-dense storage (:meth:`supports_grid_path`)."""
+        if not self.supports_grid_path():
+            raise ValueError("apply_grid requires all-dense storage")
+        d, F = self.input_dim, self.n_features_per_level
+        out_shape = tuple(int(s) for s in out_shape)
+        if len(out_shape) != d:
+            raise ValueError(f"grid rank {len(out_shape)} != encoder dim {d}")
+        n = int(np.prod(out_shape))
+        feats = []
+        for l in range(self.n_levels):
+            res = self.level_resolutions[l]
+            verts = tuple(int(r) + 1 for r in res)
+            g = table[int(self.level_offsets[l]):int(self.level_offsets[l + 1])].reshape(*verts, F)
+            for k in range(d):
+                denom = max(out_shape[k] - 1, 1)
+                x = lo + (hi - lo) * (torch.arange(out_shape[k], dtype=torch.float32, device=table.device) / denom)
+                scaled = x * float(res[k])
+                xi = torch.clamp(scaled.to(torch.int32), 0, int(res[k]) - 1)
+                w = (scaled - xi.to(torch.float32)).reshape([out_shape[k] if j == k else 1 for j in range(d + 1)])
+                xi = xi.to(torch.int64)
+                g = torch.index_select(g, k, xi) * (1.0 - w) + torch.index_select(g, k, xi + 1) * w
+            feats.append(g.reshape(n, F))
+        return torch.cat(feats, dim=-1)
 
     def corner_ids_and_weights(self, x: torch.Tensor, levels: Optional[Sequence[int]] = None
                                ) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -4,6 +4,8 @@ from . import nifti
 from .volume import (
     VoxelDataset,
     dataset_from_array,
+    even_frame_split,
+    even_frame_training_set,
     flat_coords,
     load_volume,
     make_mgrid,
@@ -15,6 +17,8 @@ __all__ = [
     "nifti",
     "VoxelDataset",
     "dataset_from_array",
+    "even_frame_split",
+    "even_frame_training_set",
     "flat_coords",
     "load_volume",
     "make_mgrid",

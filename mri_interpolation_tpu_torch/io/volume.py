@@ -22,6 +22,8 @@ __all__ = [
     "VoxelDataset",
     "load_volume",
     "dataset_from_array",
+    "even_frame_split",
+    "even_frame_training_set",
     "synthetic_volume",
 ]
 
@@ -101,6 +103,27 @@ def load_volume(
     if slice_axes is not None:
         data = data[slice_axes]
     return dataset_from_array(data, zero_centered=zero_centered, pixdim=img.pixdim)
+
+
+def even_frame_split(image: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """Split a (..., T) volume into (even frames, odd frames) along time:
+    the interpolation-quality protocol trains on ``image[..., ::2]`` and
+    scores the held-out ``image[..., 1::2]``."""
+    return image[..., ::2], image[..., 1::2]
+
+
+def even_frame_training_set(image: np.ndarray, zero_centered: bool = False) -> Tuple[np.ndarray, np.ndarray]:
+    """(coords, values) of the even frames of ``image`` (time last): the
+    coordinates of ``image[..., ::2]``'s own grid with the time axis remapped
+    by ``2 (t_even - 1) / (t_full - 1)``, so that even frame k sits at frame
+    2k of the whole volume; float32 in the JAX package's order of
+    operations."""
+    train_img, _ = even_frame_split(image)
+    lo = -1.0 if zero_centered else 0.0
+    coords = flat_coords(train_img.shape, lo=lo)
+    scale = 2.0 * (train_img.shape[-1] - 1) / max(image.shape[-1] - 1, 1)
+    coords[:, -1] = lo + (coords[:, -1] - lo) * scale
+    return coords, train_img.reshape(-1, 1)
 
 
 def synthetic_volume(

@@ -1,13 +1,20 @@
 """The launcher: load -> fit -> reconstruct -> interpolate -> report.
 
-Port of the default branch of ``mri_interpolation_tpu/launcher.py``: load a
-NIfTI volume, build the configured model (or resume it from
-``checkpoint_path``: parameters and buffers, with a fresh optimizer and
-schedule), fit it with ``Trainer.fit`` (per-step losses into
+Port of ``mri_interpolation_tpu/launcher.py``: load a NIfTI volume and take
+its training set: every voxel; with ``even_frames_only`` the even frames,
+their time coordinate remapped to their place in the whole volume; with
+``undersample_pct`` a random share of those voxels (``utils.create_rn_mask``
+seeded by ``seed``). Build the configured model (the PSF SIREN gets the
+half-voxel spacing ``0.5 / max(s - 1, 1)`` of the first three axes), or
+resume it from ``checkpoint_path``: parameters and buffers, with a fresh
+optimizer and schedule. Fit it with ``Trainer.fit`` (per-step losses into
 ``scalars.jsonl``; every ``eval_every_epochs`` epochs the PSNR of a strided
 subsample of at most ~100k training voxels; every
-``checkpoint_every_epochs`` epochs a checkpoint with the optimizer state),
-reconstruct the volume on its own grid (``pred.nii.gz``), score PSNR/SSIM,
+``checkpoint_every_epochs`` epochs a checkpoint with the optimizer state).
+Reconstruct the volume on its own grid (``pred.nii.gz``; with
+``save_latents`` and an encode/decode split, the encoder's features too,
+``latents.nii.gz``), score PSNR/SSIM against the whole volume (with
+``even_frames_only`` also ``odd_*`` against the held-out odd frames),
 evaluate each ``interp_shapes`` grid (``interpolation{shape}.nii.gz``,
 rank-adapted to the volume), and write ``config.txt``, ``metrics.json`` and
 the final checkpoint (``train/checkpoint.py``) into a versioned run
@@ -39,10 +46,11 @@ import torch
 from . import configs
 from .configs import RunConfig
 from .device import DeviceLike, resolve_device
+from .utils.imaging import create_rn_mask
 
 __all__ = ["build_parser", "run", "main", "make_run_dir", "build_model"]
 
-_HASH_MODELS = ("hash_mlp", "HashMLP", "TcnnHashMLP")
+_HASH_MODELS = ("hash_mlp", "HashMLP", "hash_siren", "HashSirenNet", "TcnnHashMLP")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -71,28 +79,26 @@ def make_run_dir(root: str) -> str:
     return path
 
 
-def build_model(cfg: RunConfig, dim_in: int, device: torch.device):
+def build_model(cfg: RunConfig, dim_in: int, device: torch.device, coordinates_spacing=None):
     """The configured model on ``device``; each factory gets only the keyword
-    arguments its signature takes."""
+    arguments its signature takes (``coordinates_spacing`` among them, where
+    given)."""
     from .models import get_model_factory
 
     factory = get_model_factory(cfg.model_class)
     accepted = inspect.signature(factory).parameters
-    kwargs = {k: v for k, v in {**cfg.model_kwargs(), "dim_in": dim_in}.items() if k in accepted}
-    return factory(**kwargs, device=device)
+    kwargs = {**cfg.model_kwargs(), "dim_in": dim_in}
+    if coordinates_spacing is not None:
+        kwargs["coordinates_spacing"] = coordinates_spacing
+    return factory(**{k: v for k, v in kwargs.items() if k in accepted}, device=device)
 
 
 def _check_ported(cfg: RunConfig) -> None:
-    for name in ("shard_tables", "data_parallel", "even_frames_only"):
+    for name in ("shard_tables", "data_parallel", "tb_events"):
         if getattr(cfg, name):
             raise NotImplementedError(f"{name} is not ported yet: ROADMAP.md, queue 1")
     if cfg.stream_shard_voxels > 0:
         raise NotImplementedError("stream_shard_voxels is not ported yet: ROADMAP.md, queue 1")
-    if cfg.undersample_pct > 0.0:
-        raise NotImplementedError("undersample_pct is not ported yet: ROADMAP.md, queue 1")
-    for name in ("save_latents", "tb_events"):
-        if getattr(cfg, name):
-            raise NotImplementedError(f"{name} is not ported yet: ROADMAP.md, queue 1")
 
 
 def _make_eval_fn(coords: np.ndarray, values: np.ndarray, zero_centered: bool, device: torch.device):
@@ -115,8 +121,8 @@ def _make_eval_fn(coords: np.ndarray, values: np.ndarray, zero_centered: bool, d
 
 def run(cfg: RunConfig, run_dir: Optional[str] = None, device: DeviceLike = None) -> dict:
     """Execute the pipeline; returns the summary also written to metrics.json."""
-    from .infer import evaluate_grid
-    from .io import load_volume, nifti
+    from .infer import evaluate_grid, has_split
+    from .io import even_frame_split, even_frame_training_set, load_volume, nifti
     from .metrics import evaluate_reconstruction
     from .ops.probe import check_build
     from .train import TrainConfig, Trainer, restore_checkpoint, save_checkpoint
@@ -132,6 +138,15 @@ def run(cfg: RunConfig, run_dir: Optional[str] = None, device: DeviceLike = None
     if cfg.slice_z is not None:
         slice_axes = (slice(None), slice(None), cfg.slice_z, slice(None))
     ds = load_volume(cfg.image_path, zero_centered=cfg.zero_centered, slice_axes=slice_axes)
+    full_image = ds.image()
+    if cfg.even_frames_only:
+        train_coords, train_values = even_frame_training_set(full_image, cfg.zero_centered)
+    else:
+        train_coords, train_values = ds.coords, ds.values
+    if cfg.undersample_pct > 0.0:
+        _, kept = create_rn_mask((len(train_values),), cfg.undersample_pct, key=cfg.seed)
+        train_coords = np.ascontiguousarray(train_coords[kept])
+        train_values = np.ascontiguousarray(train_values[kept])
     dim_in = ds.dim_in
     cfg.dim_in = dim_in
     # Resolution tuples that do not match the volume's rank are derived from
@@ -141,7 +156,8 @@ def run(cfg: RunConfig, run_dir: Optional[str] = None, device: DeviceLike = None
         if isinstance(base, (tuple, list)) and len(base) != dim_in:
             cfg.finest_resolution = tuple(int(s) for s in ds.shape)
             cfg.base_resolution = tuple(max(2, round(s / 5.5)) for s in ds.shape)
-    model = build_model(cfg, dim_in, dev)
+    spacing = tuple(0.5 / max(s - 1, 1) for s in ds.shape[:3])  # the PSF's half-voxel extents
+    model = build_model(cfg, dim_in, dev, coordinates_spacing=spacing)
 
     # ----- resume: parameters and buffers; the optimizer and schedule start afresh
     if cfg.checkpoint_path:
@@ -160,17 +176,28 @@ def run(cfg: RunConfig, run_dir: Optional[str] = None, device: DeviceLike = None
     )
     eval_fn = None
     if cfg.eval_every_epochs > 0:
-        eval_fn = _make_eval_fn(ds.coords, ds.values, cfg.zero_centered, dev)
-    result = Trainer(tc).fit(model, ds.coords, ds.values, device=dev, eval_fn=eval_fn)
+        eval_fn = _make_eval_fn(train_coords, train_values, cfg.zero_centered, dev)
+    result = Trainer(tc).fit(model, train_coords, train_values, device=dev, eval_fn=eval_fn)
 
     # ----- reconstruction + quality
     lo = -1.0 if cfg.zero_centered else 0.0
     data_range = 2.0 if cfg.zero_centered else 1.0
+    latents = None
     t0 = time.perf_counter()
-    recon = evaluate_grid(model, ds.shape, lo=lo, device=dev)
+    if cfg.save_latents and has_split(model):
+        recon, latents = evaluate_grid(model, ds.shape, lo=lo, device=dev, return_latents=True)
+    else:
+        recon = evaluate_grid(model, ds.shape, lo=lo, device=dev)
     recon_s = time.perf_counter() - t0
+    if latents is not None:
+        nifti.save(latents.astype(np.float32), os.path.join(run_dir, "latents.nii.gz"), pixdim=ds.pixdim)
     nifti.save(recon.astype(np.float32), os.path.join(run_dir, "pred.nii.gz"), pixdim=ds.pixdim)
-    quality = evaluate_reconstruction(recon, ds.image(), data_range=data_range, device=dev)
+    quality = evaluate_reconstruction(recon, full_image, data_range=data_range, device=dev)
+    if cfg.even_frames_only:  # the held-out odd frames
+        _, odd = even_frame_split(full_image)
+        _, odd_pred = even_frame_split(recon)
+        odd_q = evaluate_reconstruction(odd_pred[..., :odd.shape[-1]], odd, data_range=data_range, device=dev)
+        quality = {**quality, **{f"odd_{k}": v for k, v in odd_q.items()}}
 
     # ----- dense-grid interpolation
     interp_shapes = [tuple(s) for s in cfg.interp_shapes]
@@ -193,7 +220,8 @@ def run(cfg: RunConfig, run_dir: Optional[str] = None, device: DeviceLike = None
         "device": str(dev),
         "param_count": sum(p.numel() for p in model.parameters()),
         "steps": result.steps,
-        "batch_size": min(cfg.batch_size, len(ds)),
+        "batch_size": min(cfg.batch_size, len(train_values)),
+        "train_voxels": len(train_values),
         "final_loss": result.final_loss,
         "train_wall_s": result.wall_time_s,
         "train_hook_s": result.hook_time_s,
@@ -201,6 +229,7 @@ def run(cfg: RunConfig, run_dir: Optional[str] = None, device: DeviceLike = None
         "recon_eval_s": recon_s,
         "interp_eval_s": interp_s,
         **quality,
+        **({"coordinates_spacing": list(spacing)} if "coordinates_spacing" in getattr(model, "hparams", {}) else {}),
         "run_dir": run_dir,
     }
     with open(os.path.join(run_dir, "metrics.json"), "w") as f:

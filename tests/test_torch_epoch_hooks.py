@@ -36,7 +36,7 @@ from mri_interpolation_tpu.train.scalars import ScalarLogger as JaxScalarLogger
 from mri_interpolation_tpu_torch import launcher
 from mri_interpolation_tpu_torch.configs import RunConfig
 from mri_interpolation_tpu_torch.convert import params_from_jax
-from mri_interpolation_tpu_torch.infer import predict_batched
+from mri_interpolation_tpu_torch.infer import evaluate_grid, predict_batched
 from mri_interpolation_tpu_torch.io import load_volume, nifti, synthetic_volume
 from mri_interpolation_tpu_torch.models import make_hash_mlp
 from mri_interpolation_tpu_torch.train import (ScalarLogger, TrainConfig, Trainer, latest_step, read_scalars,
@@ -210,10 +210,23 @@ def test_launcher_streams_eval_and_epoch_checkpoints(volume, tmp_path):
 
 @pytest.mark.parametrize("name, value", [("save_latents", True), ("tb_events", True)])
 def test_launcher_unported_output_options_raise(volume, tmp_path, name, value):
-    cfg = RunConfig(image_path=volume, output_root=str(tmp_path))
+    """``tb_events`` is not ported and raises; ``save_latents``, ported since,
+    writes the flagship's encoder features, ``latents.nii.gz`` of shape
+    (16, 16, 8, 4), equal to ``evaluate_grid``'s latents of the saved model."""
+    cfg = RunConfig(image_path=volume, output_root=str(tmp_path), epochs=1, batch_size=512, interp_shapes=(),
+                    **FLAGSHIP)
     setattr(cfg, name, value)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        launcher.run(cfg, device="cpu")
+    if name == "tb_events":
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            launcher.run(cfg, device="cpu")
+        return
+    run_dir = launcher.run(cfg, device="cpu")["run_dir"]
+    latents = nifti.load(os.path.join(run_dir, "latents.nii.gz")).get_fdata(np.float32)
+    model = make_hash_mlp(3, device="cpu", **FLAGSHIP)
+    model.load_state_dict(restore_checkpoint(os.path.join(run_dir, "checkpoints"))["model"])
+    _, want = evaluate_grid(model, SHAPE, device="cpu", return_latents=True)
+    assert latents.shape == SHAPE + (4,)
+    np.testing.assert_array_equal(latents, want)
 
 
 def test_ngp_shape_in_both_launchers_from_one_init(volume, tmp_path):

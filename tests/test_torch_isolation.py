@@ -259,6 +259,51 @@ def test_slice_seven_entry_points_raise_without_a_card(no_card, tmp_path):
     assert set(he.LAUNCHES.values()) == {0} and set(fm.LAUNCHES.values()) == {0}
 
 
+def test_slice_eight_entry_points_raise_without_a_card(no_card, tmp_path):
+    """The held-out-frame launcher, the SIREN family, the grid path's options
+    and the protocols run on the card or raise; with the CPU asked for they
+    run there and launch nothing."""
+    from mri_interpolation_tpu_torch.infer import device_eval_seconds
+    from mri_interpolation_tpu_torch.io import nifti, synthetic_volume
+    from mri_interpolation_tpu_torch.models import make_hash_siren, make_modulated_siren, make_psf_siren
+    from mri_interpolation_tpu_torch.train import protocols
+
+    siren_kw = dict(dim_hidden=8, n_layers=2)
+    hash_kw = dict(n_levels=2, log2_hashmap_size=8, base_resolution=4, per_level_scale=1.5)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_hash_siren(3, **siren_kw, **hash_kw)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_modulated_siren(3, **siren_kw)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_psf_siren(3, coordinates_spacing=(0.1, 0.1, 0.1), **siren_kw)
+    model = make_hash_mlp(3, device="cpu", **TINY)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        evaluate_grid(model, (4, 4, 4), transport="u16")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        evaluate_grid(model, (4, 4, 4), return_latents=True)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        device_eval_seconds(model, (4, 4, 4))
+    image = synthetic_volume((4, 4, 4), seed=0)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        protocols.even_frame_fit_eval(model, image, TrainConfig(batch_size=16))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        launcher.run(RunConfig(image_path=str(tmp_path / "absent.nii.gz"), output_root=str(tmp_path),
+                               even_frames_only=True, undersample_pct=50.0, save_latents=True))
+    assert list(tmp_path.iterdir()) == []
+    # the CPU, when asked for, works, and launches nothing
+    he.reset_launches()
+    fm.reset_launches()
+    path = str(tmp_path / "vol.nii.gz")
+    nifti.save(synthetic_volume((8, 8, 4), seed=0), path)
+    cfg = RunConfig(image_path=path, output_root=str(tmp_path / "runs"), even_frames_only=True, undersample_pct=50.0,
+                    save_latents=True, epochs=1, batch_size=16, interp_shapes=(), save_checkpoint=False,
+                    decoder="relu_plain", **TINY)
+    assert np.isfinite(launcher.run(cfg, device="cpu")["odd_psnr"])
+    siren = make_hash_siren(3, device="cpu", **siren_kw, **hash_kw)
+    assert evaluate_grid(siren, (4, 4, 4), lo=-1.0, device="cpu", transport="u16").shape == (4, 4, 4)
+    assert set(he.LAUNCHES.values()) == {0} and set(fm.LAUNCHES.values()) == {0}
+
+
 def test_evaluate_grid_refuses_a_model_on_another_device():
     model = make_hash_mlp(3, device="cpu", **TINY)
     with pytest.raises(ValueError, match="model is on"):

@@ -48,6 +48,9 @@ CONFIGS = {
                base_resolution=(8, 8), finest_resolution=(33, 33)),
     "d4_hashed": dict(dim=4, n_levels=2, n_features_per_level=3, log2_hashmap_size=9,
                       base_resolution=(3, 3, 2, 2), finest_resolution=(9, 9, 5, 6), storage="hashed"),
+    # the NGP 3-level F=8 paper+cosine HashMLP's encoder: 2,224,303 dense rows, every level global in kernel 2
+    "ngp": dict(dim=3, n_levels=3, n_features_per_level=8, log2_hashmap_size=23, base_resolution=(64, 64, 5),
+                finest_resolution=(352, 352, 15), growth="paper"),
 }
 
 
@@ -121,9 +124,13 @@ def _forward_bound(ref):
     return 2e-6 * max(1.0, float(ref.abs().max()))
 
 
-OUTSIDE = {**{k: CONFIGS[k] for k in ("flagship", "d2", "hashed")},
+OUTSIDE = {**{k: CONFIGS[k] for k in ("flagship", "d2", "hashed", "ngp")},
            "tcnn": dict(dim=3, n_levels=16, n_features_per_level=2, log2_hashmap_size=19, base_resolution=16,
-                        finest_resolution=None, per_level_scale=1.4)}
+                        finest_resolution=None, per_level_scale=1.4),
+           # hash_siren's encoder (scripts/experiments.py:200-203), which --zero_centered feeds x in [-1, 1]:
+           # 921,464 rows, levels 0-3 dense, 4-9 hashed
+           "hash_siren": dict(dim=3, n_levels=10, n_features_per_level=2, log2_hashmap_size=17, base_resolution=16,
+                              finest_resolution=None, per_level_scale=1.4)}
 
 
 @pytest.mark.gpu

@@ -3,10 +3,10 @@ score, against the JAX pipeline, plus the port's launcher, IO and metrics.
 
 Tolerances and their reasons:
 
-- same parameters through ``evaluate_grid``: atol 1e-4. The JAX package
-  encodes an all-dense grid with the separable ``apply_grid`` and the port
-  per voxel; the features agree to 1e-6 (the JAX tests' own bound), and the
-  eval-mode BatchNorm divides them by running deviations down to ~1e-2.
+- same parameters through ``evaluate_grid``: atol 1e-4. Both packages
+  encode an all-dense grid with the separable ``apply_grid``; the features
+  agree to 1e-6 (the JAX tests' own bound), and the eval-mode BatchNorm
+  divides them by running deviations down to ~1e-2.
 - two fits from one init (``shuffle=False``): reconstruction PSNR within
   0.05 dB, SSIM within 5e-3, and the interpolated volumes within 40 dB PSNR
   of each other. A bias that feeds a BatchNorm has a true gradient of zero,
@@ -196,8 +196,8 @@ def test_launcher_rank_adapts_a_4d_volume(tmp_path):
 
 
 @pytest.mark.parametrize("field, value", [("shard_tables", True), ("data_parallel", True),
-                                          ("even_frames_only", True), ("stream_shard_voxels", 100),
-                                          ("undersample_pct", 10.0), ("model_class", "modulated_siren")])
+                                          ("model_class", "gabor"), ("stream_shard_voxels", 100),
+                                          ("model_class", "rff_net"), ("model_class", "warp_inr")])
 def test_launcher_unported_branches_raise(tmp_path, field, value):
     cfg = RunConfig(image_path=_write_volume(tmp_path, (8, 8, 4)), output_root=str(tmp_path / "runs"))
     setattr(cfg, field, value)

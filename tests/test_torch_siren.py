@@ -235,7 +235,12 @@ def test_relu_plain_loss_curve_with_adam_tcnn_matches_jax():
 def test_registry_names():
     assert get_model_factory("siren") is make_siren and get_model_factory("SirenNet") is make_siren
     assert get_model_factory("TcnnHashMLP") is make_hash_mlp
-    assert set(REGISTRY) == {"siren", "SirenNet", "hash_mlp", "HashMLP", "TcnnHashMLP",
+    for names, factory in ((("modulated_siren", "ModulatedSirenNet"), tsiren.make_modulated_siren),
+                           (("hash_siren", "HashSirenNet"), tsiren.make_hash_siren),
+                           (("psf_siren", "PsfSirenNet"), tsiren.make_psf_siren)):
+        assert all(get_model_factory(name) is factory for name in names)
+    assert set(REGISTRY) == {"siren", "SirenNet", "hash_mlp", "HashMLP", "TcnnHashMLP", "modulated_siren",
+                             "ModulatedSirenNet", "hash_siren", "HashSirenNet", "psf_siren", "PsfSirenNet",
                              "multi_siren", "MultiSiren", "multi_hash_mlp", "MultiHashMLP"}
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_model_factory("modulated_siren")
+        get_model_factory("gabor")
