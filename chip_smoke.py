@@ -30,7 +30,10 @@ Phases, each printed with its time as it ends:
    24-64-1 decoder, at a training batch and a grid chunk, x in [0, 1] and
    in [-1, 1]; kernels 1-2 on hash_siren's encoder at N = 20,000, x in
    [-1, 1], and on the temporal protocol's at N = 10,000; kernels 5-6 on
-   the protocol's relu 16-64-1 decoder), with times (the
+   the protocol's relu 16-64-1 decoder; kernels 1-2 on the warp INR's 2-D
+   encoder at N = 10,000 and 131,072, x = clip(u + 0.05 n, 0, 1), with the
+   plain-torch coordinate gradient beside them, card against CPU), with
+   times (the
    profiler's device time, or CUDA events over a CUDA graph where it records
    none; kernel 5's forward rows hold its split prologue and its forward
    kernel), bounds (for kernels 5-6 also the 3xTF32 tensor-core bound) and
@@ -43,7 +46,10 @@ Phases, each printed with its time as it ends:
    and weight decay, with the level anneal and the temporal TV, and with
    remat (held also to the card's fit without remat, BatchNorm statistics
    and the anneal counter included), ``fit_frames`` with cosine and
-   accumulation, and the modulated, hash and PSF SIRENs;
+   accumulation, and the modulated, hash and PSF SIRENs; then the rest of
+   the zoo: BaseMLP, RffNet, the real GaborNet, FreqMLP (siren encoder
+   with a skip, and rff) and the warp INR (residual, warp_accel,
+   warp_smooth, a level anneal);
 5. main paths, each with the launch counters set to 0 just before it and
    read just after:
    - flagship: ``launcher.run`` with the defaults on a synthetic
@@ -86,14 +92,25 @@ Phases, each printed with its time as it ends:
      of 512,000-row plain forwards; its spacing checked);
    - flagship_undersample: the flagship on the 10% of the voxels that
      seed 1337's mask keeps (kept // 10,000 steps);
+   - warp_protocol: ``launcher.main --model_class warp_inr
+     --even_frames_only true`` with ``scripts/experiments.py:275-280``'s
+     widths and RESULTS.md:34's residual (99 steps, the resolutions derived
+     from the frames, kernel 1 on every grid chunk), the odd frames' PSNR
+     and SSIM; warp_ensemble: ``ensembled_warp_fit_eval``, 2 seeds of 1
+     epoch with warp_accel 1.0, blended with the linear baseline at 0.25;
+   - rff_net, gabor, freq_mlp and mlp at RESULTS.md's widths, batch 20,000
+     (92 steps each; plain torch, only the probe launches);
+   - classical: the CLI with ``--method linear`` and ``cubic``, each file
+     held to numpy within 1e-6;
    - grid routes: the flagship's and ngp's fitted models on the (352, 352,
      30) grid by the separable path and by kernel 1 per chunk (``transform=
      lambda x: x``), held to each other (atol 1e-4 / 1e-5), their device
      and wall times, and ``transport="u16"`` within one step of f32;
 6. profile: device time by kernel over 20 training steps of each path (one
    epoch of 15 frames for the multi-frame models) and one grid evaluation
-   of the flagship, paths A and B, ngp, protocol_tv and hash_siren
-   (torch.profiler).
+   of the flagship, paths A and B, ngp, protocol_tv, hash_siren and
+   warp_protocol (torch.profiler), and the warp coordinate gradient's
+   device time a step (from phase 3).
 
 The last two lines are the kernels' JSON line and
 ``{"ok": true, "device": {...}}``. Any failed phase exits non-zero before
@@ -111,6 +128,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 
 import numpy as np
 
@@ -186,6 +204,31 @@ MODULATED_FLAGS = ["--model_class", "modulated_siren", "--zero_centered", "true"
                    "--n_layers", "4", "--batch_size", "20000", "--lr", "1e-4"]
 PSF_FLAGS = ["--model_class", "psf_siren", "--zero_centered", "true", "--dim_hidden", "256", "--n_layers", "5",
              "--n_sample", "5", "--batch_size", "4096", "--lr", "1e-4"]
+# the warp INR of scripts/experiments.py:275-280 with RESULTS.md:34's residual: a 2-D canonical encoder (4 dense
+# levels x F = 4, paper growth, base 64, finest 352: 181,603 rows), relu 16 -> 64 -> 1, SIREN warp 3 -> 64 -> 64 -> 2
+# at w0 5 and scale 0.05, residual 0.05
+WARP = dict(n_levels=4, n_features_per_level=4, log2_hashmap_size=23, base_resolution=(64, 64),
+            finest_resolution=(352, 352), growth="paper", dim_hidden=64, n_layers=2, warp_hidden=64, warp_layers=3,
+            warp_w0=5.0, warp_scale=0.05, residual_scale=0.05)
+WARP_GEOMETRY = dict(dim=2, **{k: WARP[k] for k in ("n_levels", "n_features_per_level", "log2_hashmap_size",
+                                                    "base_resolution", "finest_resolution", "growth")})
+# the launcher derives base (64, 64) and finest (352, 352) from the volume's frames
+WARP_FLAGS = ["--model_class", "warp_inr", "--n_levels", "4", "--n_features_per_level", "4", "--log2_hashmap_size",
+              "23", "--growth", "paper", "--dim_hidden", "64", "--n_layers", "2", "--warp_hidden", "64",
+              "--warp_layers", "3", "--warp_w0", "5", "--warp_scale", "0.05", "--residual_scale", "0.05",
+              "--optimizer", "adam_tcnn", "--lr", "1e-2", "--lr_schedule", "cosine", "--cosine_t_max", "1",
+              "--weight_decay", "1e-5", "--batch_size", "10000", "--even_frames_only", "true"]
+# the rest of the zoo at RESULTS.md:12-14,21's widths (scripts/experiments.py:128-186), batch 20,000
+ZOO_FLAGS = {
+    "rff_net": ["--model_class", "rff_net", "--dim_hidden", "256", "--n_layers", "4", "--n_frequencies", "256",
+                "--sigma", "10", "--lr", "1e-4"],
+    "gabor": ["--model_class", "gabor", "--zero_centered", "true", "--dim_hidden", "256", "--n_layers", "4",
+              "--sigma", "10", "--lr", "3e-4"],
+    "freq_mlp": ["--model_class", "freq_mlp", "--dim_hidden", "352", "--n_layers", "4", "--encoder_type", "siren",
+                 "--n_frequencies", "352", "--n_frequencies_t", "15", "--skip_connections", "2", "--lr", "1e-3",
+                 "--weight_decay", "1e-5"],
+    "mlp": ["--model_class", "mlp", "--dim_hidden", "352", "--n_layers", "8", "--lr", "1e-4"],
+}
 TCNN_FLAGS = ["--n_levels", "16", "--n_features_per_level", "2", "--log2_hashmap_size", "19",
               "--base_resolution", "16", "--per_level_scale", "1.4", "--dim_hidden", "128", "--n_layers", "2",
               "--decoder", "relu_plain", "--lr", "1e-2", "--optimizer", "adam_tcnn"]
@@ -535,6 +578,54 @@ def check_slice_hash_kernels(torch, he, dev) -> dict:
                                       geometry).items():
             rows[name].append(row)
     return rows
+
+
+def check_warp_hash_kernels(torch, he, dev):
+    """Kernels 1 and 2 on the warp INR's canonical encoder (2-D, 4 dense
+    levels x F = 4, 181,603 rows), a table drawn U(-1, 1), at a training
+    batch (N = 10,000) and a grid chunk (N = 131,072), x = clip(u + 0.05 n,
+    0, 1) with u uniform and n normal: the warped points, a few percent on
+    the bounds. Beside them the coordinate gradient (plain torch,
+    ``he.hash_encode_coord_grad``) on the card against the same function on
+    the CPU (atol 1e-5 of the largest value), with its device time (all the
+    kernels it launches, profiler) and its time per call. Returns
+    (per-kernel rows, coordinate-gradient rows)."""
+    from mri_interpolation_tpu_torch.encodings import HashGridEncoding
+
+    gen = torch.Generator(device="cpu").manual_seed(12)
+    enc = HashGridEncoding(**WARP_GEOMETRY)
+    table = torch.rand((enc.total_size, enc.n_features_per_level), generator=gen) * 2 - 1
+    table_d = table.to(dev)
+    log(f"[kernels] warp: {enc.total_size:,d} rows x F={enc.n_features_per_level}, dense {enc.level_dense.tolist()}, "
+        f"cell-view {enc.level_cellview.tolist()}, plan at N=10,000 {he.table_grad_plan(enc, 10_000)}")
+    rows = {"hash_encode_forward": [], "hash_encode_table_grad": []}
+    coord = []
+    for n, what in ((10_000, "train batch"), (1 << 17, "grid chunk")):
+        x = torch.clamp(torch.rand((n, 2), generator=gen) + 0.05 * torch.randn((n, 2), generator=gen), 0.0, 1.0)
+        g = torch.randn((n, enc.output_dim), generator=gen)
+        on_bounds = float(((x == 0) | (x == 1)).float().mean())
+        label = f"{what}, x = clip(u + 0.05 n, 0, 1)"
+        xd, gd = x.to(dev), g.to(dev)
+        for name, row in encoder_rows(torch, he, enc, table_d, xd, gd, label, "warp").items():
+            rows[name].append({**row, "share_on_bounds": on_bounds})
+        got = he.hash_encode_coord_grad(enc, table_d, xd, gd)
+        t0 = time.perf_counter()
+        want = he.hash_encode_coord_grad(enc, table, x, g)
+        plain_s = time.perf_counter() - t0
+        err, tol = float((got.cpu() - want).abs().max()), 1e-5 * float(want.abs().max())
+        if not math.isfinite(err) or err > tol:
+            fail(f"hash_encode_coord_grad warp {what}: max abs err {err} > {tol}")
+        call = lambda: he.hash_encode_coord_grad(enc, table_d, xd, gd)  # noqa: E731
+        kernels, _ = profile_device(call, 20)
+        row = {"n": n, "what": label, "share_on_bounds": on_bounds, "max_abs_err": err, "tolerance": tol,
+               "device_ms": sum(ms for ms, _ in kernels.values()) / 20,
+               "launches_per_call": sum(k for _, k in kernels.values()) / 20, "call_ms": time_ms(call),
+               "cpu_ms": plain_s * 1e3}
+        coord.append(row)
+        log(f"  coord_grad warp N={n:>7,d} ({what}, {100 * on_bounds:.2f}% of coordinates on the bounds): err "
+            f"{err:.3e} (tol {tol:.3e})  device {row['device_ms']:.4f} ms in {row['launches_per_call']:.0f} "
+            f"launches  per call {row['call_ms']:.4f} ms  CPU {row['cpu_ms']:.2f} ms")
+    return rows, coord
 
 
 def check_coarse_kernels(torch, he, dev):
@@ -1045,6 +1136,42 @@ def small_option_fits(torch) -> dict:
     return rels
 
 
+def small_zoo_fits(torch) -> dict:
+    """The rest of the zoo, 10 steps each, card vs CPU: BaseMLP, RffNet,
+    the real GaborNet (zero-centred), FreqMLP with the siren encoder and a
+    skip before block 2 and with the rff encoder (weight decay 1e-5), and
+    the warp INR with the residual, warp_accel, warp_smooth (the exact jvp)
+    and a 5-step level anneal (its encoder on kernels 1-2, its warped points
+    on the coordinate gradient; at init every point on a bound sits on the
+    clip's tie). Returns the largest relative differences."""
+    from mri_interpolation_tpu_torch.models import make_freq_mlp, make_gabor_net, make_mlp, make_rff_net, make_warp_inr
+    from mri_interpolation_tpu_torch.train import TrainConfig
+
+    base = dict(batch_size=200, epochs=1, shuffle=False)
+    freq = dict(dim_hidden=32, n_layers=3, n_frequencies=32, n_frequencies_t=8, seed=5)
+    warp = dict(n_levels=3, n_features_per_level=4, base_resolution=(4, 4), finest_resolution=(16, 16),
+                dim_hidden=16, warp_hidden=16, residual_scale=0.05, warp_accel=1.0, warp_smooth=0.1,
+                level_anneal_steps=5, seed=5)
+    return {
+        "mlp": small_fit_matches_cpu(torch, "mlp", lambda d: make_mlp(3, 64, n_layers=4, device=d, seed=5),
+                                     TrainConfig(**base, lr=1e-3)),
+        "rff_net": small_fit_matches_cpu(
+            torch, "rff_net", lambda d: make_rff_net(3, 64, n_layers=3, n_frequencies=32, device=d, seed=5),
+            TrainConfig(**base, lr=1e-3)),
+        "gabor": small_fit_matches_cpu(torch, "gabor", lambda d: make_gabor_net(3, 32, n_layers=3, device=d, seed=5),
+                                       TrainConfig(**base, lr=3e-4), zero_centered=True),
+        "freq_mlp siren skip": small_fit_matches_cpu(
+            torch, "freq_mlp siren skip",
+            lambda d: make_freq_mlp(3, skip_connections=(2,), encoder_type="siren", device=d, **freq),
+            TrainConfig(**base, lr=1e-3, weight_decay=1e-5)),
+        "freq_mlp rff": small_fit_matches_cpu(
+            torch, "freq_mlp rff", lambda d: make_freq_mlp(3, encoder_type="rff", device=d, **freq),
+            TrainConfig(**base, lr=1e-3, weight_decay=1e-5)),
+        "warp_inr": small_fit_matches_cpu(torch, "warp_inr", lambda d: make_warp_inr(3, device=d, **warp),
+                                          TrainConfig(**base, lr=1e-2, optimizer="adam_tcnn")),
+    }
+
+
 def small_fit_frames_match_cpu(torch) -> dict:
     """Ten steps of Trainer.fit_frames (2 epochs x 5 frames of a (16, 16, 5)
     volume), card vs CPU, from one init, for a small MultiHashMLP (tables
@@ -1321,6 +1448,130 @@ def drive_held_out_paths(path: str, tmp: str, zero: dict, paths: dict) -> None:
     log(f"[flagship_undersample] {len(kept):,d} of {n:,d} voxels kept ({100 * len(kept) / n:.3f}%)")
 
 
+def numpy_linear(volume: np.ndarray, out_shape) -> np.ndarray:
+    """Multilinear resampling in float64 numpy, as ``map_coordinates(order=1,
+    mode="nearest")`` computes it: at the source index j (S - 1) / (O - 1)
+    per axis, the sum over the 2^d corners of the weights' product times the
+    value, each corner index clipped to [0, S - 1]."""
+    vol = np.asarray(volume, np.float64)
+    axes = []
+    for k, out in enumerate(out_shape):
+        size = vol.shape[k]
+        pos = np.arange(out, dtype=np.float64) * ((size - 1) / max(out - 1, 1))
+        lower = np.floor(pos)
+        w = pos - lower
+        lower = lower.astype(np.int64)
+        axes.append(((np.clip(lower, 0, size - 1), 1.0 - w), (np.clip(lower + 1, 0, size - 1), w)))
+    result = np.zeros(tuple(out_shape), np.float64)
+    for corner in range(1 << vol.ndim):
+        idx, weight = [], 1.0
+        for k, ((i0, w0), (i1, w1)) in enumerate(axes):
+            i, w = (i1, w1) if (corner >> k) & 1 else (i0, w0)
+            shape = [1] * vol.ndim
+            shape[k] = len(i)
+            idx.append(i.reshape(shape))
+            weight = weight * w.reshape(shape)
+        result += weight * vol[tuple(idx)]
+    return result.astype(np.float32)
+
+
+def drive_slice_nine_paths(path: str, img: np.ndarray, tmp: str, zero: dict, paths: dict) -> None:
+    """Phase 5's paths of the zoo slice, each with the counters at 0 just
+    before it and read just after, on the volume at ``path``: warp_protocol
+    (``launcher.main --model_class warp_inr --even_frames_only true``, the
+    spatial resolutions derived from the frames), warp_ensemble
+    (``ensembled_warp_fit_eval``, 2 seeds of 1 epoch, linear blend 0.25), the
+    zoo at RESULTS.md's widths (rff_net, gabor, freq_mlp, mlp: batch 20,000,
+    plain torch, only the probe launches), and classical (the CLI with
+    ``--method linear`` and ``cubic``, each file held to numpy within
+    1e-6). ``img`` is the volume at ``path`` as an array, which the ensemble
+    fits."""
+    import torch
+    from mri_interpolation_tpu_torch import launcher
+    from mri_interpolation_tpu_torch.infer import classical
+    from mri_interpolation_tpu_torch.io import nifti
+    from mri_interpolation_tpu_torch.models import make_warp_inr
+    from mri_interpolation_tpu_torch.train import TrainConfig
+    from mri_interpolation_tpu_torch.train.protocols import ensembled_warp_fit_eval
+
+    grid = ["--image_path", path, "--interp_shapes", str(GRID), "--epochs", "1"]
+    n = int(np.prod(VOLUME))
+    even = n // VOLUME[-1] * ((VOLUME[-1] + 1) // 2)
+    steps = even // 10_000  # 99 on the (352, 352, 15) volume
+    # no encode/decode split: kernel 1 on every chunk of both grids, the warped points' gradient in plain torch
+    paths["warp_protocol"] = out = drive_path(
+        "warp_protocol", "launcher.main, warp INR on the even frames (residual 0.05)",
+        lambda: cli(launcher, [*WARP_FLAGS, "--output_root", os.path.join(tmp, "warp"), *grid]),
+        steps, 10_000, {**zero, "hash_encode_forward": steps + CHUNKS, "hash_encode_table_grad": steps, "probe": 1})
+    with open(os.path.join(out["run_dir"], "config.txt")) as f:
+        text = f.read()
+    frame = VOLUME[:-1]
+    base = tuple(max(2, round(v / 5.5)) for v in frame)  # (64, 64) for (352, 352) frames
+    if f"base_resolution : {base}\n" not in text or f"finest_resolution : {frame}\n" not in text:
+        fail(f"warp_protocol: the spatial resolutions were not derived from the {frame} frames")
+    if not all(math.isfinite(out[k]) for k in ("odd_psnr", "odd_ssim")) or out["train_voxels"] != even:
+        fail(f"warp_protocol: odd PSNR {out.get('odd_psnr')} / SSIM {out.get('odd_ssim')}, "
+             f"{out['train_voxels']} training voxels")
+    log(f"[warp_protocol] held-out odd frames: PSNR {out['odd_psnr']:.3f} dB, SSIM {out['odd_ssim']:.4f}")
+
+    cfg = TrainConfig(batch_size=10_000, epochs=1, lr=1e-2, optimizer="adam_tcnn", lr_schedule="cosine",
+                      cosine_t_max=1, weight_decay=1e-5)
+    seeds = (1337, 7)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    q = ensembled_warp_fit_eval(lambda seed: make_warp_inr(3, warp_accel=1.0, seed=seed, **WARP), img, cfg,
+                                seeds=seeds, linear_blend=0.25)
+    seconds = time.perf_counter() - t0
+    launches = read_counts()
+    recon_chunks = -(-n // (1 << 17))
+    want = {**zero, "hash_encode_forward": 2 * (steps + recon_chunks), "hash_encode_table_grad": 2 * steps}
+    scores = [*q["per_seed_odd_psnr"], q["odd"]["psnr"], q["odd"]["ssim"], q["full"]["psnr"], q["full"]["ssim"]]
+    if launches != want or not all(math.isfinite(v) for v in scores):
+        fail(f"warp_ensemble: launches {launches} (expected {want}), scores {scores}")
+    paths["warp_ensemble"] = {"launches": launches, "wall_s": seconds, "per_seed_odd_psnr": q["per_seed_odd_psnr"],
+                              "odd": q["odd"], "full": q["full"]}
+    log(f"[warp_ensemble] 2 seeds x {steps} steps, linear blend 0.25: odd PSNR per seed "
+        f"{[round(v, 3) for v in q['per_seed_odd_psnr']]}, ensembled {q['odd']['psnr']:.3f} dB (SSIM "
+        f"{q['odd']['ssim']:.4f}), full {q['full']['psnr']:.3f} dB; launches {launches}; {seconds:.1f} s")
+
+    for name, flags in ZOO_FLAGS.items():
+        paths[name] = drive_path(
+            name, f"launcher.main, {name} (" + " ".join(flags[2:]) + ")",
+            lambda flags=flags, name=name: cli(launcher, [*flags, "--batch_size", "20000", "--output_root",
+                                                          os.path.join(tmp, name), *grid]),
+            n // 20_000, 20_000, {**zero, "probe": 1})
+
+    data = nifti.load(path).get_fdata(np.float32)
+    data = data / data.max()
+    out_dir = os.path.join(tmp, "classical")
+    os.makedirs(out_dir)
+    reset_counts()
+    t0 = time.perf_counter()
+    errs = {}
+    for method in ("linear", "cubic"):
+        out_path = os.path.join(out_dir, f"{method}.nii.gz")
+        with contextlib.redirect_stdout(io.StringIO()):
+            classical.main([path, "--out", out_path, "--method", method])
+        got = nifti.load(out_path).get_fdata(np.float32)
+        if method == "linear":
+            ref = numpy_linear(data[..., ::2], VOLUME)
+        else:
+            t_keep = [2 * j / (VOLUME[-1] - 1) for j in range((VOLUME[-1] + 1) // 2)]
+            ref = classical.cubic_interpolate_frames(data[..., ::2], t_keep,
+                                                     [i / (VOLUME[-1] - 1) for i in range(VOLUME[-1])])
+        errs[method] = float(np.abs(got - ref).max()) if got.shape == ref.shape else float("inf")
+        if not errs[method] <= 1e-6:
+            fail(f"classical {method}: file {got.shape} differs from numpy by {errs[method]} (atol 1e-6)")
+    seconds = time.perf_counter() - t0
+    launches = read_counts()
+    if launches != zero:
+        fail(f"classical: launches {launches}")
+    paths["classical"] = {"launches": launches, "wall_s": seconds, "max_abs_err": errs}
+    log(f"[classical] CLI --method linear / cubic on {VOLUME} (even frames to all): files within "
+        f"{errs['linear']:.3e} / {errs['cubic']:.3e} of numpy; {seconds:.1f} s")
+
+
 def check_grid_routes(paths: dict) -> dict:
     """The flagship's and ngp's fitted models, reloaded from their runs'
     checkpoints, on the (352, 352, 30) grid by both routes: the separable
@@ -1468,8 +1719,9 @@ def profile_main_paths(torch) -> None:
     bounds)."""
     from mri_interpolation_tpu_torch.infer import evaluate_grid
     from mri_interpolation_tpu_torch.io import dataset_from_array, synthetic_volume
+    from mri_interpolation_tpu_torch.io import even_frame_training_set
     from mri_interpolation_tpu_torch.models import (make_hash_mlp, make_hash_siren, make_multi_hash_mlp,
-                                                    make_multi_siren, make_psf_siren, make_siren)
+                                                    make_multi_siren, make_psf_siren, make_siren, make_warp_inr)
     from mri_interpolation_tpu_torch.train import TrainConfig, Trainer
 
     ds = dataset_from_array(synthetic_volume(VOLUME, seed=0))
@@ -1487,6 +1739,9 @@ def profile_main_paths(torch) -> None:
     hash_siren = make_hash_siren(3, dim_hidden=64, n_layers=4,
                                  **{k: v for k, v in HASH_SIREN.items() if k not in ("dim", "finest_resolution")})
     psf = make_psf_siren(3, dim_hidden=256, n_layers=5, coordinates_spacing=[0.5 / (s - 1) for s in VOLUME])
+    warp = make_warp_inr(3, **WARP)
+    warp_coords, warp_values = even_frame_training_set(img)
+    warp_ds = types.SimpleNamespace(coords=warp_coords, values=warp_values)
     fit = lambda model, d, cfg, n: lambda: Trainer(cfg).fit(model, d.coords[:n], d.values[:n])  # noqa: E731
     phases = (
         ("flagship train_step", fit(flagship, ds, TrainConfig(epochs=1), 200_000), 20),
@@ -1498,9 +1753,12 @@ def profile_main_paths(torch) -> None:
                                                                  lr_schedule="cosine", cosine_t_max=1), 200_000), 20),
         ("hash_siren train_step", fit(hash_siren, zc, TrainConfig(batch_size=20_000, lr=1e-4), 400_000), 20),
         ("psf_siren train_step", fit(psf, zc, TrainConfig(batch_size=4096, lr=1e-4), 20 * 4096), 20),
+        ("warp_protocol train_step", fit(warp, warp_ds, TrainConfig(
+            lr=1e-2, optimizer="adam_tcnn", weight_decay=1e-5, lr_schedule="cosine", cosine_t_max=1), 200_000), 20),
         ("flagship grid_eval_352x352x30 (separable)", lambda: evaluate_grid(flagship, GRID), 1),
         ("protocol_tv grid_eval_352x352x30 (separable)", lambda: evaluate_grid(protocol, GRID), 1),
         ("hash_siren grid_eval_352x352x30", lambda: evaluate_grid(hash_siren, GRID, lo=-1.0), 1),
+        ("warp_protocol grid_eval_352x352x30", lambda: evaluate_grid(warp, GRID), 1),
         ("path A grid_eval_352x352x30", lambda: evaluate_grid(siren, GRID, lo=-1.0), 1),
         ("path B grid_eval_352x352x30", lambda: evaluate_grid(tcnn, GRID), 1),
         ("ngp grid_eval_352x352x30 (separable)", lambda: evaluate_grid(ngp, GRID), 1),
@@ -1585,6 +1843,9 @@ def main() -> int:
         rows[name].extend(krows)
     for name, krows in check_slice_hash_kernels(torch, he, dev).items():
         rows[name].extend(krows)
+    warp_rows, coord_grad_rows = check_warp_hash_kernels(torch, he, dev)
+    for name, krows in warp_rows.items():
+        rows[name].extend(krows)
     rows.update(check_fused_mlp(torch, fm, dev))
     for name, krows in check_grid_frames(torch, he, fm, dev).items():
         rows[name].extend(krows)
@@ -1596,12 +1857,14 @@ def main() -> int:
     rels = small_fits(torch)
     rels.update(small_option_fits(torch))
     rels.update(small_fit_frames_match_cpu(torch))
+    rels.update(small_zoo_fits(torch))
     log(f"[small fit] 10 steps each, card vs CPU loss curves, max rel diff (rtol {FIT_RTOL}): "
         + ", ".join(f"{k} {v:.3e}" for k, v in rels.items()) + f" in {time.perf_counter() - t0:.1f} s")
 
     # 5. main paths
     zero = {name: 0 for name in SOURCES}
     paths = {}
+    img = dataset_from_array(synthetic_volume(VOLUME, seed=0)).image()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         t0 = time.perf_counter()
         path = os.path.join(tmp, "synthetic_352x352x15.nii.gz")
@@ -1624,6 +1887,7 @@ def main() -> int:
                           "fused_mlp_forward": 185 + CHUNKS, "fused_mlp_backward": 185, "probe": 1})
         drive_ngp_paths(path, tmp, zero, paths)
         drive_held_out_paths(path, tmp, zero, paths)
+        drive_slice_nine_paths(path, img, tmp, zero, paths)
         check_grid_routes(paths)
 
     # the kernel bench: each timed call runs once to check, 3 times to warm up, ITERS times timed
@@ -1632,7 +1896,6 @@ def main() -> int:
                                   "hash_encode_coarse_forward": 3 * calls, "hash_encode_coarse_table_grad": calls})
 
     # the multi-frame paths: 2 epochs x 15 frames, then one (352, 352) grid chunk per frame
-    img = dataset_from_array(synthetic_volume(VOLUME, seed=0)).image()
     paths["multi_hash_mlp"] = drive_frames(
         "multi_hash_mlp", lambda: make_multi_hash_mlp(**MULTI_HASH), TrainConfig(epochs=2, lr=5e-3), img, False,
         {**zero, "hash_encode_forward": 30 + 15, "hash_encode_table_grad": 30, "fused_mlp_forward": 30 + 15,
@@ -1645,6 +1908,9 @@ def main() -> int:
     t0 = time.perf_counter()
     profile_main_paths(torch)
     log(f"[profile] done in {time.perf_counter() - t0:.1f} s")
+    for row in coord_grad_rows:
+        log(f"[profile] warp coordinate gradient (phase 3), N={row['n']:,d}: {row['device_ms']:.4f} ms of device time "
+            f"a call, {row['call_ms']:.4f} ms a call; one call a training step")
 
     kernels = []
     for name, krows in rows.items():

@@ -66,7 +66,17 @@ class RunConfig:
     w0: float = 30.0
     w0_initial: float = 30.0
     sigma: float = 6.0
+    n_frequencies: int = 128             # rff_net / freq_mlp: Fourier features or encoder width
+    n_frequencies_t: int = 15            # freq_mlp: the temporal encoder's
     n_sample: int = 5                    # psf_siren: PSF points per axis
+    encoder_type: str = "hash"           # freq_mlp: gabor | siren | frequency | rff ("hash" raises there)
+    skip_connections: Tuple[int, ...] = ()  # freq_mlp: decoder blocks that take the encoding again
+    # warp_inr (motion-compensated INR)
+    warp_scale: float = 0.05
+    warp_w0: float = 5.0
+    warp_hidden: int = 64
+    warp_layers: int = 3
+    residual_scale: float = 0.0          # >0: a small zero-initialised appearance residual
 
     # --- hash encoding
     n_levels: int = 4
@@ -101,6 +111,16 @@ class RunConfig:
             "w0_initial": self.w0_initial,
             "sigma": self.sigma,
             "n_sample": self.n_sample,
+            "n_frequencies": self.n_frequencies,
+            "n_frequencies_t": self.n_frequencies_t,
+            "encoder_type": self.encoder_type,
+            "skip_connections": self.skip_connections,
+            "weight_decay": self.weight_decay,
+            "warp_scale": self.warp_scale,
+            "warp_w0": self.warp_w0,
+            "warp_hidden": self.warp_hidden,
+            "warp_layers": self.warp_layers,
+            "residual_scale": self.residual_scale,
             "lr": self.lr,
             "n_levels": self.n_levels,
             "n_features_per_level": self.n_features_per_level,
@@ -199,7 +219,7 @@ def apply_enco_config(cfg: RunConfig, enco: Dict[str, Any]) -> RunConfig:
 # "64,64,5" / "(64,64,5)"; nested tuples like interp_shapes accept
 # "(352,352,30),(352,352,60)". A bare int stays an int (the hash encoders
 # dispatch isotropic/anisotropic on that).
-_TUPLE_FIELDS = ("base_resolution", "finest_resolution", "interp_shapes")
+_TUPLE_FIELDS = ("base_resolution", "finest_resolution", "interp_shapes", "skip_connections")
 
 
 def parse_tuple_flag(text: str):
@@ -248,6 +268,8 @@ def override_from_args(cfg: RunConfig, args: argparse.Namespace) -> RunConfig:
                     raise ValueError("interp_shapes needs full shapes, e.g. '(352,352,30)'")
                 if isinstance(v, tuple) and v and all(isinstance(s, int) for s in v):
                     v = (v,)
+            elif f.name == "skip_connections" and isinstance(v, int):
+                v = (v,)
             setattr(out, f.name, v)
     return out
 

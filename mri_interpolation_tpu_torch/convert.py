@@ -4,7 +4,9 @@ The port keeps the JAX package's layouts (dense weights (dim_in, dim_out),
 the fused (T, F) hash table, BatchNorm scale/bias/mean/var), so the move is
 a tree-map with no transposes: nested dicts and lists flatten into a
 ``state_dict`` with "."-joined keys, e.g. ``params["layers"][0]["w"]`` ->
-``"layers.0.w"`` and ``state["bn"][1]["var"]`` -> ``"bn.1.var"``.
+``"layers.0.w"`` and ``state["bn"][1]["var"]`` -> ``"bn.1.var"``. A
+Python ``bool`` leaf (the complex GaborNet's per-layer ``"complex"`` flag)
+is a static attribute in the port, not a tensor, and is skipped.
 """
 
 from __future__ import annotations
@@ -24,6 +26,8 @@ def _flatten(prefix: str, node: Any, out: Dict[str, torch.Tensor]) -> None:
     elif isinstance(node, (list, tuple)):
         for i, child in enumerate(node):
             _flatten(f"{prefix}{i}.", child, out)
+    elif isinstance(node, bool):
+        return
     else:
         name = prefix[:-1]
         if name in out:

@@ -1,5 +1,7 @@
 """Coordinate encodings."""
 
+from .fourier import GaussianFourierEncoding
+from .frequency import FrequencyEncoding
 from .hashgrid import PRIMES, HashGridEncoding
 
-__all__ = ["HashGridEncoding", "PRIMES"]
+__all__ = ["HashGridEncoding", "PRIMES", "FrequencyEncoding", "GaussianFourierEncoding"]

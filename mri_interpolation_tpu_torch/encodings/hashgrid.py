@@ -22,6 +22,10 @@ Semantics kept from the reference:
 one axis at a time (two slab gathers and a lerp per axis), in plain tensor
 code as the JAX original is plain XLA; ``infer/grid.py`` dispatches to it.
 
+``level_cellview`` marks the JAX package's cell-view levels (dense, at most
+``CELL_VIEW_MAX_CELLS`` cells): the only ones whose corner weights carry a
+gradient to the coordinates (``ops.hash_encode.hash_encode_coord_grad``).
+
 ``temporal_table_tv`` is the time-axis smoothness prior of the HashMLP's
 ``temporal_tv`` option, in plain tensor code (the JAX package has no kernel
 for it either).
@@ -34,7 +38,7 @@ from typing import Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
-__all__ = ["HashGridEncoding", "PRIMES", "LEVEL_CONST_WIDTH", "temporal_table_tv"]
+__all__ = ["HashGridEncoding", "PRIMES", "LEVEL_CONST_WIDTH", "CELL_VIEW_MAX_CELLS", "temporal_table_tv"]
 
 # Hash primes (up to 7-D input), tcnn grid.h constants.
 PRIMES = (1, 2654435761, 805459861, 3674653429, 2097192037, 1434869437, 2165219737)
@@ -45,6 +49,10 @@ _MASK32 = 0xFFFFFFFF
 # struct Level): res[4], vertex strides[4], size, offset, dense, source (the
 # coarse kernels' first row of the level in the fused table; 0 here).
 LEVEL_CONST_WIDTH = 12
+
+# the JAX HashGridEncoding's default cell_view_max_cells: dense levels of at most this many cells
+# take its cell-view path (the others its packed path, which gives the coordinates no gradient)
+CELL_VIEW_MAX_CELLS = 1 << 18
 
 
 def _level_geometry(
@@ -143,6 +151,10 @@ class HashGridEncoding:
         self.level_sizes = np.where(dense, vertex_counts, sizes).astype(np.int64)
         self.level_offsets = np.concatenate([[0], np.cumsum(self.level_sizes)]).astype(np.int64)
         self.total_size = int(self.level_offsets[-1])
+        # the JAX package's cell-view levels: dense with at most CELL_VIEW_MAX_CELLS cells. There
+        # the coordinates' gradient flows through the corner weights; elsewhere it is zero.
+        cell_counts = np.prod(res.astype(np.int64), axis=1)
+        self.level_cellview = dense & (cell_counts <= CELL_VIEW_MAX_CELLS)  # (L,) bool
         self.kernel_constants = self.level_constants()  # host block for the CUDA kernels
 
     def init(self, generator: Optional[torch.Generator] = None) -> torch.Tensor:
@@ -211,6 +223,18 @@ class HashGridEncoding:
             feats.append(g.reshape(n, F))
         return torch.cat(feats, dim=-1)
 
+    def level_cells(self, xs: Sequence[torch.Tensor], level: int) -> Tuple[list, list]:
+        """Per axis k of ``xs`` (d tensors (N,)): the cell index (int64; the
+        truncated ``x * res``, clamped to [0, res - 1] on a dense level) and
+        the fraction ``x * res - index`` (float32)."""
+        res = self.level_resolutions[level]
+        scaled = [x * float(res[k]) for k, x in enumerate(xs)]
+        xi = [s.to(torch.int32) for s in scaled]  # truncation, as astype(int32)
+        if self.level_dense[level]:
+            xi = [torch.clamp(i, 0, int(res[k]) - 1) for k, i in enumerate(xi)]
+        xf = [s - i.to(torch.float32) for s, i in zip(scaled, xi)]
+        return [i.to(torch.int64) for i in xi], xf
+
     def corner_ids_and_weights(self, x: torch.Tensor, levels: Optional[Sequence[int]] = None
                                ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Global table rows and multilinear weights of every corner.
@@ -224,14 +248,8 @@ class HashGridEncoding:
         xs = [x[:, k] for k in range(d)]
         ids_levels, w_levels = [], []
         for l in (range(self.n_levels) if levels is None else levels):
-            res = self.level_resolutions[l]
             dense = bool(self.level_dense[l])
-            scaled = [xs[k] * float(res[k]) for k in range(d)]
-            xi = [s.to(torch.int32) for s in scaled]  # truncation, as astype(int32)
-            if dense:
-                xi = [torch.clamp(i, 0, int(res[k]) - 1) for k, i in enumerate(xi)]
-            xf = [s - i.to(torch.float32) for s, i in zip(scaled, xi)]
-            xi = [i.to(torch.int64) for i in xi]
+            xi, xf = self.level_cells(xs, l)
             ids_c, w_c = [], []
             for c in range(C):
                 w = None

@@ -5,7 +5,10 @@ its training set: every voxel; with ``even_frames_only`` the even frames,
 their time coordinate remapped to their place in the whole volume; with
 ``undersample_pct`` a random share of those voxels (``utils.create_rn_mask``
 seeded by ``seed``). Build the configured model (the PSF SIREN gets the
-half-voxel spacing ``0.5 / max(s - 1, 1)`` of the first three axes), or
+half-voxel spacing ``0.5 / max(s - 1, 1)`` of the first three axes; hash
+resolution tuples of another rank than the encoded axes, all of the
+volume's for the hash models and its spatial ones for the warp INR, are
+derived from their sizes), or
 resume it from ``checkpoint_path``: parameters and buffers, with a fresh
 optimizer and schedule. Fit it with ``Trainer.fit`` (per-step losses into
 ``scalars.jsonl``; every ``eval_every_epochs`` epochs the PSNR of a strided
@@ -149,13 +152,18 @@ def run(cfg: RunConfig, run_dir: Optional[str] = None, device: DeviceLike = None
         train_values = np.ascontiguousarray(train_values[kept])
     dim_in = ds.dim_in
     cfg.dim_in = dim_in
-    # Resolution tuples that do not match the volume's rank are derived from
-    # its shape with the reference's base:finest ratio (~1/5.5).
+    # Resolution tuples whose rank differs from the encoded axes' are derived
+    # from the volume's shape with the reference's base:finest ratio (~1/5.5);
+    # the warp INR encodes the spatial axes alone (time drives its deformation).
+    encoded = None
     if cfg.model_class in _HASH_MODELS:
-        base = cfg.base_resolution
-        if isinstance(base, (tuple, list)) and len(base) != dim_in:
-            cfg.finest_resolution = tuple(int(s) for s in ds.shape)
-            cfg.base_resolution = tuple(max(2, round(s / 5.5)) for s in ds.shape)
+        encoded = tuple(ds.shape)
+    elif cfg.model_class == "warp_inr":
+        encoded = tuple(ds.shape[:-1])
+    base = cfg.base_resolution
+    if encoded is not None and isinstance(base, (tuple, list)) and len(base) != len(encoded):
+        cfg.finest_resolution = tuple(int(s) for s in encoded)
+        cfg.base_resolution = tuple(max(2, round(s / 5.5)) for s in encoded)
     spacing = tuple(0.5 / max(s - 1, 1) for s in ds.shape[:3])  # the PSF's half-voxel extents
     model = build_model(cfg, dim_in, dev, coordinates_spacing=spacing)
 

@@ -13,8 +13,8 @@ from typing import Callable, Dict, Optional, Tuple
 import torch
 from torch import nn
 
-__all__ = ["Model", "Dense", "BatchNorm", "uniform_init", "dense_init", "dense", "batchnorm_apply",
-           "dropout"]
+__all__ = ["Model", "Dense", "BatchNorm", "SpectralNorm", "uniform_init", "dense_init", "dense",
+           "batchnorm_apply", "dropout", "spectral_norm_init", "spectral_norm_apply"]
 
 
 def uniform_init(shape: Tuple[int, ...], bound: float,
@@ -72,6 +72,36 @@ def dropout(x: torch.Tensor, rate: float, train: bool,
     return torch.where(mask, x / keep, torch.zeros_like(x))
 
 
+def spectral_norm_init(dim_out: int, generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """The power iteration's start vector u (dim_out,): N(0, 1), normalised."""
+    u = torch.randn((dim_out,), generator=generator)
+    return u / (torch.linalg.norm(u) + 1e-12)
+
+
+def spectral_norm_apply(w: torch.Tensor, u: torch.Tensor, train: bool, n_power_iterations: int = 4,
+                        eps: float = 1e-12) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``w`` (dim_in, dim_out) divided by its top singular value, estimated
+    by power iteration on this layout, as the JAX package: in training
+    ``n_power_iterations`` rounds of ``v = w @ u``, ``u = w.T @ v`` (each
+    normalised), u and v carrying no gradient; in eval one ``v = w @ u``
+    from the stored u, with its gradient. Returns (w / sigma, new u), sigma
+    = ``v @ (w @ u)``. Not ``torch.nn.utils.spectral_norm``, which iterates
+    once by default, over the (out, in) layout, in another order."""
+    if train:
+        with torch.no_grad():
+            wd = w.detach()
+            for _ in range(n_power_iterations):
+                v = wd @ u
+                v = v / (torch.linalg.norm(v) + eps)
+                u = wd.T @ v
+                u = u / (torch.linalg.norm(u) + eps)
+    else:
+        v = w @ u
+        v = v / (torch.linalg.norm(v) + eps)
+    sigma = v @ (w @ u)
+    return w / sigma, u
+
+
 class Dense(nn.Module):
     """Linear layer in the (dim_in, dim_out) layout holding the parameters
     ``params`` ({"w", "b"}, e.g. from :func:`dense_init`)."""
@@ -109,6 +139,23 @@ class BatchNorm(nn.Module):
                 self.mean.copy_(new_mean)
                 self.var.copy_(new_var)
         return y
+
+
+class SpectralNorm(nn.Module):
+    """The power iteration's vector as a buffer ``u`` (the JAX state
+    ``{"u"}``); ``forward(w)`` returns the normalised weight and, in
+    training, stores the new u."""
+
+    def __init__(self, dim_out: int, generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.register_buffer("u", spectral_norm_init(dim_out, generator))
+
+    def forward(self, w: torch.Tensor) -> torch.Tensor:
+        w_norm, u = spectral_norm_apply(w, self.u, self.training)
+        if self.training:
+            with torch.no_grad():
+                self.u.copy_(u)
+        return w_norm
 
 
 class Model(nn.Module):

@@ -41,7 +41,7 @@ from ..ops.fused_mlp import fused_mlp_apply
 from ..ops.hash_encode import HashEncode
 from .core import BatchNorm, Dense, Model, dense_init, dropout
 
-__all__ = ["HashGridEncoder", "HashMLP", "make_hash_mlp"]
+__all__ = ["HashGridEncoder", "HashMLP", "make_hash_mlp", "level_anneal_weights"]
 
 _ACTS = {
     "gelu": lambda z: F.gelu(z, approximate="tanh"),
@@ -59,6 +59,18 @@ class HashGridEncoder(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return HashEncode.apply(self.table, x, self.geometry)
+
+
+def level_anneal_weights(anneal_step: torch.Tensor, steps: int, geometry: HashGridEncoding) -> torch.Tensor:
+    """The coarse-to-fine curriculum's per-feature weights (L*F,) at the
+    counter ``anneal_step``: level l's weight is ``clip(alpha * L - l + 1, 0,
+    1)``, alpha = ``anneal_step / steps`` clipped to [0, 1]; float32 in the
+    JAX package's order of operations."""
+    L = geometry.n_levels
+    alpha = torch.clamp(anneal_step.to(torch.float32) / steps, 0.0, 1.0)
+    levels = torch.arange(L, dtype=torch.float32, device=alpha.device)
+    weights = torch.clamp(alpha * L - levels + 1.0, 0.0, 1.0)
+    return weights.repeat_interleave(geometry.n_features_per_level)
 
 
 class HashMLP(Model):
@@ -105,12 +117,7 @@ class HashMLP(Model):
         operations."""
         if self.level_anneal_steps <= 0:
             return None
-        geometry = self.encoder.geometry
-        L = geometry.n_levels
-        alpha = torch.clamp(self.anneal_step.to(torch.float32) / self.level_anneal_steps, 0.0, 1.0)
-        levels = torch.arange(L, dtype=torch.float32, device=alpha.device)
-        weights = torch.clamp(alpha * L - levels + 1.0, 0.0, 1.0)
-        return weights.repeat_interleave(geometry.n_features_per_level)
+        return level_anneal_weights(self.anneal_step, self.level_anneal_steps, self.encoder.geometry)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         z = self.encode(x)

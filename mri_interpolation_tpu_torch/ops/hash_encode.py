@@ -11,6 +11,10 @@ Dispatch: a CPU tensor goes to the plain PyTorch version
 a CUDA tensor goes to the kernel, or the wrapper raises. There is no
 fallback from the card to the plain version. Each wrapper adds one to its
 entry of :data:`LAUNCHES` per kernel launch, and nowhere else.
+
+The coordinates' gradient (:func:`hash_encode_coord_grad`, which the warp
+INR's warped points need) is plain torch on both devices, as JAX takes it
+from XLA's autodiff and not from a Pallas kernel.
 """
 
 from __future__ import annotations
@@ -37,6 +41,7 @@ __all__ = [
     "table_grad_plan",
     "plan_words",
     "HashEncode",
+    "hash_encode_coord_grad",
     "coarse_onehot_levels",
     "coarse_constants",
     "CoarseGradPlan",
@@ -250,21 +255,62 @@ def hash_encode_table_grad(enc: HashGridEncoding, x: torch.Tensor, g: torch.Tens
     return dtable
 
 
+def hash_encode_coord_grad(enc: HashGridEncoding, table: torch.Tensor, x: torch.Tensor,
+                           g: torch.Tensor) -> torch.Tensor:
+    """dL/dx (N, d) for upstream g (N, L*F), in plain torch on either device
+    (the JAX package takes it from XLA's autodiff, not from a kernel).
+
+    As in JAX, the gradient flows only through the corner weights of the
+    cell-view levels (``enc.level_cellview``): the cell index is an integer
+    (no gradient), so for such a level
+    ``dx_k = res_k * sum_c <g_l, row_c> * dw_c/dxf_k``, with
+    ``dw_c/dxf_k`` the product of the other axes' factors, signed + where
+    corner c takes xi + 1 on axis k and - where it takes xi. The other
+    levels (hashed, or dense with more cells) contribute zero: JAX's packed
+    path returns no coordinate cotangent. The corner rows are gathered once;
+    the features are not recomputed."""
+    n, d, F = x.shape[0], enc.input_dim, enc.n_features_per_level
+    levels = [l for l in range(enc.n_levels) if enc.level_cellview[l]]
+    if not levels or n == 0:
+        return torch.zeros_like(x)
+    ids, _ = enc.corner_ids_and_weights(x, levels)  # (N, Lc, C)
+    rows = table[ids]  # (N, Lc, C, F): the one gather
+    gl = g.reshape(n, enc.n_levels, F)[:, levels]  # (N, Lc, F)
+    s = torch.einsum("nlcf,nlf->nlc", rows, gl)
+    xs = [x[:, k] for k in range(d)]
+    cols = [torch.zeros_like(xs[0]) for _ in range(d)]
+    for i, l in enumerate(levels):
+        _, xf = enc.level_cells(xs, l)
+        for k in range(d):
+            acc = torch.zeros_like(xs[0])
+            for c in range(1 << d):
+                term = s[:, i, c]
+                for j in range(d):
+                    if j != k:
+                        term = term * (xf[j] if (c >> j) & 1 else 1.0 - xf[j])
+                acc = acc + term if (c >> k) & 1 else acc - term
+            cols[k] = cols[k] + float(enc.level_resolutions[l][k]) * acc
+    return torch.stack(cols, dim=-1)
+
+
 class HashEncode(torch.autograd.Function):
-    """Differentiable encode w.r.t. the table: the forward launches kernel 1,
-    the backward kernel 2. Coordinates get no gradient (they are data)."""
+    """Differentiable encode: the forward launches kernel 1; the backward
+    kernel 2 for the table and, where the coordinates need a gradient (the
+    warp INR's warped points), :func:`hash_encode_coord_grad` for them."""
 
     @staticmethod
     def forward(ctx, table: torch.Tensor, x: torch.Tensor, enc: HashGridEncoding) -> torch.Tensor:
         ctx.enc = enc
-        ctx.save_for_backward(x)
+        ctx.save_for_backward(x, table)
         return hash_encode_forward(enc, table, x)
 
     @staticmethod
     def backward(ctx, g: torch.Tensor):
-        (x,) = ctx.saved_tensors
-        dtable = hash_encode_table_grad(ctx.enc, x, g.contiguous()) if ctx.needs_input_grad[0] else None
-        return dtable, None, None
+        x, table = ctx.saved_tensors
+        g = g.contiguous()
+        dtable = hash_encode_table_grad(ctx.enc, x, g) if ctx.needs_input_grad[0] else None
+        dx = hash_encode_coord_grad(ctx.enc, table, x, g) if ctx.needs_input_grad[1] else None
+        return dtable, dx, None
 
 
 # ---------------------------------------------------------------------------

@@ -9,27 +9,31 @@
   odd frames;
 - ``undersampled_fit_eval``: fit from a random share of the voxels
   (``utils.create_rn_mask``), reconstruct the whole grid, score it beside
-  the zero-filled baseline.
+  the zero-filled baseline;
+- ``ensembled_warp_fit_eval``: the even-frame protocol fitted once per
+  seed, the full-grid reconstructions averaged (and optionally blended with
+  the linear baseline), then scored.
 
-The registration and warp-ensemble protocols wait for their modules
-(ROADMAP.md).
+The registration protocol waits for ``infer/registration.py`` (ROADMAP.md).
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple
+import dataclasses
+from typing import Callable, Optional, Sequence, Tuple
 
 import numpy as np
 
 from ..device import DeviceLike, resolve_device
-from ..infer import evaluate_grid
+from ..infer import evaluate_grid, linear_interpolate_volume
 from ..io.volume import even_frame_split, even_frame_training_set, flat_coords
 from ..metrics import evaluate_reconstruction
 from ..models.core import Model
 from ..utils.imaging import create_rn_mask
 from .trainer import TrainConfig, Trainer, TrainResult
 
-__all__ = ["key_frame_subset", "two_phase_hash_fit", "even_frame_fit_eval", "undersampled_fit_eval"]
+__all__ = ["key_frame_subset", "two_phase_hash_fit", "even_frame_fit_eval", "undersampled_fit_eval",
+           "ensembled_warp_fit_eval"]
 
 
 def key_frame_subset(coords: np.ndarray, values: np.ndarray, image_shape: Sequence[int],
@@ -104,3 +108,35 @@ def undersampled_fit_eval(model: Model, image: np.ndarray, percentage: float, co
         "zero_filled": evaluate_reconstruction(zero_filled, image, data_range=data_range, device=dev),
         "kept_fraction": float(len(kept)) / float(np.prod(image.shape)),
     }
+
+
+def ensembled_warp_fit_eval(make_model: Callable[[int], Model], image: np.ndarray, config: TrainConfig,
+                            seeds: Sequence[int] = (1337, 7, 23, 99), linear_blend: float = 0.0,
+                            zero_centered: bool = False, device: DeviceLike = None) -> dict:
+    """The seed-ensembled even-frame protocol: for each seed, fit
+    ``make_model(seed)`` (the JAX trainer draws each fit's init from its
+    seed; the port's factories take it) on the even frames with
+    ``dataclasses.replace(config, seed=seed)`` and reconstruct the whole
+    grid; average the reconstructions, blend them with the linear baseline
+    from the even frames (``pred = (1 - b) * ensemble + b * linear``) when
+    ``linear_blend`` b > 0, and score. Returns {"odd": metrics, "full":
+    metrics, "per_seed_odd_psnr": [...]}."""
+    dev = resolve_device(device)
+    lo = -1.0 if zero_centered else 0.0
+    data_range = 2.0 if zero_centered else 1.0
+    coords, values = even_frame_training_set(image, zero_centered)
+    recons, per_seed = [], []
+    for seed in seeds:
+        model = make_model(seed)
+        Trainer(dataclasses.replace(config, seed=seed)).fit(model, coords, values, device=dev)
+        recon = evaluate_grid(model, image.shape, lo=lo, device=dev)
+        q = evaluate_reconstruction(recon[..., 1::2], image[..., 1::2], data_range=data_range, device=dev)
+        per_seed.append(float(q["psnr"]))
+        recons.append(recon)
+    pred = np.mean(recons, axis=0)
+    if linear_blend > 0.0:
+        lin = linear_interpolate_volume(image[..., ::2], image.shape, device=dev)
+        pred = (1.0 - linear_blend) * pred + linear_blend * lin
+    return {"odd": evaluate_reconstruction(pred[..., 1::2], image[..., 1::2], data_range=data_range, device=dev),
+            "full": evaluate_reconstruction(pred, image, data_range=data_range, device=dev),
+            "per_seed_odd_psnr": per_seed}

@@ -22,7 +22,8 @@ reaches only 1/k of its decay, as in the JAX package. Other semantics kept:
 by wrapping around to the permutation's start; ``shuffle=False`` walks the
 data in order; ``optimizer="adam_tcnn"`` is tcnn's Adam (b2 0.99, eps
 1e-15); a model with a ``loss(x, y)`` method is trained on it in place of
-``loss_fn(model(x), y)``; ``remat`` recomputes the forward in the backward
+``loss_fn(model(x), y)``; a model with complex parameters is refused
+(``NotImplementedError``); ``remat`` recomputes the forward in the backward
 (``torch.utils.checkpoint``), value-identical to the plain step.
 
 ``fit_frames`` fits the multi-frame models: one step per whole frame, the
@@ -281,6 +282,10 @@ class Trainer:
         ``eval_every_epochs`` epochs into the scalars stream."""
         cfg = self.config
         dev = resolve_device(device)
+        if any(p.is_complex() for p in model.parameters()):
+            raise NotImplementedError(
+                "complex parameters (the complex GaborNet) are not trainable: the JAX trainer cannot fit them "
+                "either, so no reference holds such a fit (ROADMAP.md, section 3)")
         n = len(coords)
         batch = min(cfg.batch_size, n)
         steps_per_epoch = n // batch if cfg.drop_last else -(-n // batch)

@@ -31,7 +31,18 @@ from mri_interpolation_tpu_torch.train import TrainConfig, Trainer
 REPO = Path(__file__).resolve().parents[1]
 PORT_DIR = REPO / "mri_interpolation_tpu_torch"
 FORBIDDEN = ("jax", "jaxlib", "optax", "flax", "mri_interpolation_tpu")
-PORT_FILES = sorted(PORT_DIR.rglob("*.py")) + [REPO / "chip_smoke.py"]
+
+
+def _package_files(root: Path):
+    """The package's modules: the .py files whose every directory up to
+    ``root`` holds an ``__init__.py``. The build directory (``ops/_build``,
+    gitignored, no ``__init__.py``) is left out, so a working tree and a
+    clean checkout of one commit collect the same cases."""
+    return sorted(p for p in root.rglob("*.py")
+                  if all((d / "__init__.py").exists() for d in p.parents if d == root or root in d.parents))
+
+
+PORT_FILES = _package_files(PORT_DIR) + [REPO / "chip_smoke.py"]
 TINY = dict(base_resolution=(2, 2, 2), finest_resolution=(4, 4, 4), dim_hidden=4)
 
 
@@ -69,6 +80,20 @@ def test_no_pytorch_extension_builder():
         assert "cpp_extension" not in text and "torch.compile" not in text, path
     for src in (PORT_DIR / "ops" / "csrc").glob("*.cu"):
         assert "#include <torch" not in src.read_text() and "#include <ATen" not in src.read_text()
+
+
+def test_package_files_leave_out_the_build_directory(tmp_path):
+    """A stray module in a gitignored directory without ``__init__.py``
+    (the build directory) adds no case to ``test_no_jax_import``."""
+    root = tmp_path / "pkg"
+    for d in (root, root / "ops"):
+        d.mkdir(parents=True, exist_ok=True)
+        (d / "__init__.py").write_text("")
+    (root / "ops" / "k.py").write_text("")
+    (root / "ops" / "_build").mkdir()
+    (root / "ops" / "_build" / "stray.py").write_text("import jax\n")
+    assert [p.relative_to(root).as_posix() for p in _package_files(root)] == [
+        "__init__.py", "ops/__init__.py", "ops/k.py"]
 
 
 def test_build_directory_is_ignored():
@@ -301,6 +326,43 @@ def test_slice_eight_entry_points_raise_without_a_card(no_card, tmp_path):
     assert np.isfinite(launcher.run(cfg, device="cpu")["odd_psnr"])
     siren = make_hash_siren(3, device="cpu", **siren_kw, **hash_kw)
     assert evaluate_grid(siren, (4, 4, 4), lo=-1.0, device="cpu", transport="u16").shape == (4, 4, 4)
+    assert set(he.LAUNCHES.values()) == {0} and set(fm.LAUNCHES.values()) == {0}
+
+
+def test_slice_nine_entry_points_raise_without_a_card(no_card, tmp_path):
+    """The rest of the zoo, the warp INR, the classical baselines and the
+    warp ensemble run on the card or raise; with the CPU asked for they run
+    there and launch nothing."""
+    from mri_interpolation_tpu_torch.infer import classical
+    from mri_interpolation_tpu_torch.io import nifti, synthetic_volume
+    from mri_interpolation_tpu_torch.models import (make_freq_mlp, make_gabor_net, make_mlp, make_rff_net,
+                                                    make_warp_inr)
+    from mri_interpolation_tpu_torch.train import protocols
+
+    warp_kw = dict(n_levels=2, n_features_per_level=2, base_resolution=(2, 2), finest_resolution=(4, 4),
+                   dim_hidden=4, warp_hidden=4)
+    for make, kw in ((make_mlp, {}), (make_rff_net, {}), (make_gabor_net, {}), (make_freq_mlp, {}),
+                     (make_warp_inr, warp_kw)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make(3, **kw)
+    image = synthetic_volume((4, 4, 4), seed=0)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        classical.linear_interpolate_volume(image, (4, 4, 8))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        protocols.ensembled_warp_fit_eval(lambda seed: make_warp_inr(3, device="cpu", seed=seed, **warp_kw), image,
+                                          TrainConfig(batch_size=16), seeds=(1,))
+    path = str(tmp_path / "vol.nii.gz")
+    nifti.save(image, path)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        classical.main([path, "--out", str(tmp_path / "out.nii.gz")])
+    assert sorted(p.name for p in tmp_path.iterdir()) == ["vol.nii.gz"]
+    # the CPU, when asked for, works, and launches nothing
+    he.reset_launches()
+    fm.reset_launches()
+    got = protocols.ensembled_warp_fit_eval(lambda seed: make_warp_inr(3, device="cpu", seed=seed, **warp_kw), image,
+                                            TrainConfig(batch_size=16), seeds=(1,), linear_blend=0.5, device="cpu")
+    assert len(got["per_seed_odd_psnr"]) == 1 and np.isfinite(got["odd"]["psnr"])
+    assert classical.main([path, "--out", str(tmp_path / "out.nii.gz"), "--device", "cpu"]).shape == (4, 4, 4)
     assert set(he.LAUNCHES.values()) == {0} and set(fm.LAUNCHES.values()) == {0}
 
 

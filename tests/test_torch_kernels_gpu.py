@@ -147,6 +147,37 @@ def test_kernels_match_plain_versions_outside_the_unit_cube(name, cuda_device):
     _assert_within_atomic_bound(dt, he.hash_encode_table_grad_reference(enc, x, g), enc, x, g)
 
 
+# the warp INR's canonical encoder (scripts/experiments.py:275-280): 2-D, 4 dense (cell-view) levels x F = 4,
+# paper growth, 181,603 rows; its coordinates are clip(x + d(x, t), 0, 1), so a few percent sit on the bounds
+WARP = dict(dim=2, n_levels=4, n_features_per_level=4, log2_hashmap_size=23, base_resolution=(64, 64),
+            finest_resolution=(352, 352), growth="paper")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [10_000, 131_072], ids=["train_batch", "grid_chunk"])
+def test_warp_encoder_kernels_and_coordinate_gradient(n, cuda_device):
+    """Kernels 1-2 on the warp encoder, x = clip(u + 0.05 * normal, 0, 1),
+    under the forward and per-entry bounds; and the coordinate gradient
+    (plain torch on both devices) through ``HashEncode``'s backward on the
+    card against the same function on the CPU, within 1e-5 of its largest
+    value (sums of corner terms in another order)."""
+    enc, x, table, g = _inputs(WARP, n, cuda_device, seed=3)
+    noise = torch.from_numpy(np.random.default_rng(4).standard_normal((n, 2)).astype(np.float32))
+    x = torch.clamp(x + 0.05 * noise.to(cuda_device), 0.0, 1.0)
+    assert 0.01 < float(((x == 0) | (x == 1)).float().mean()) < 0.1
+    y = he.hash_encode_forward(enc, table, x)
+    ref = he.hash_encode_reference(enc, table, x)
+    assert float((y - ref).abs().max()) <= _forward_bound(ref)
+    dt = he.hash_encode_table_grad(enc, x, g)
+    _assert_within_atomic_bound(dt, he.hash_encode_table_grad_reference(enc, x, g), enc, x, g)
+    xg = x.clone().requires_grad_()
+    he.reset_launches()
+    (he.HashEncode.apply(table, xg, enc) * g).sum().backward()
+    assert he.LAUNCHES == {**ZERO, "hash_encode_forward": 1}  # the table needs no gradient here
+    want = he.hash_encode_coord_grad(enc, table.cpu(), x.cpu(), g.cpu())
+    assert float((xg.grad.cpu() - want).abs().max()) <= 1e-5 * float(want.abs().max())
+
+
 SEEDS = list(range(1, 25))
 
 

@@ -196,8 +196,7 @@ def test_launcher_rank_adapts_a_4d_volume(tmp_path):
 
 
 @pytest.mark.parametrize("field, value", [("shard_tables", True), ("data_parallel", True),
-                                          ("model_class", "gabor"), ("stream_shard_voxels", 100),
-                                          ("model_class", "rff_net"), ("model_class", "warp_inr")])
+                                          ("stream_shard_voxels", 100), ("tb_events", True)])
 def test_launcher_unported_branches_raise(tmp_path, field, value):
     cfg = RunConfig(image_path=_write_volume(tmp_path, (8, 8, 4)), output_root=str(tmp_path / "runs"))
     setattr(cfg, field, value)

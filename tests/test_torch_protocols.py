@@ -1,8 +1,9 @@
 """Port parity: the held-out-frame and undersampling protocols, in the
 launcher (``even_frames_only``, ``undersample_pct``, ``save_latents``, the
 PSF spacing, the SIREN family through ``launcher.run``) and in
-``train/protocols.py``, and the port's undersampling mask
-(``utils.create_rn_mask``), against the JAX package.
+``train/protocols.py`` (the seed-ensembled warp protocol among them), and
+the port's undersampling mask (``utils.create_rn_mask``), against the JAX
+package.
 
 JAX's mask draws from ``jax.random.bernoulli``, which torch cannot
 reproduce, so the parity tests hand JAX's kept indices to the port (the
@@ -356,3 +357,38 @@ def test_even_frame_split_matches_jax():
     img = synthetic_volume((4, 3, 7), seed=0)
     for a, b in zip(even_frame_split(img), jax_even_frame_split(img)):
         np.testing.assert_array_equal(a, b)
+
+
+def test_ensembled_warp_fit_eval_matches_jax(monkeypatch):
+    """Two seeds of the warp INR (residual 0.05, warp_accel 1.0) on the even
+    frames, each fit from the JAX init of its seed (injected by seed into
+    the JAX trainer, and into the port through ``make_model(seed)``), the
+    mean blended with the linear baseline at 0.25: each seed's odd-frame
+    PSNR and the ensemble's odd and full scores."""
+    from mri_interpolation_tpu.models import warp as jwarp
+    from mri_interpolation_tpu_torch.models import make_warp_inr
+
+    kw = dict(n_levels=3, n_features_per_level=4, log2_hashmap_size=16, base_resolution=(4, 4),
+              finest_resolution=(16, 16), dim_hidden=16, warp_hidden=16, residual_scale=0.05, warp_accel=1.0)
+    seeds = (1337, 7)
+    jm = jwarp.make_warp_inr(dim_in=3, **kw)
+    inits = {s: jax.device_get(jm.init(jax.random.key(s))) for s in seeds}
+
+    def make_model(seed):
+        tm = make_warp_inr(3, device="cpu", **kw)
+        tm.load_state_dict(params_from_jax(*inits[seed]))
+        return tm
+
+    jfit = JaxTrainer.fit
+    monkeypatch.setattr(JaxTrainer, "fit", lambda self, m, c, v, **k: jfit(
+        self, m, c, v, params=inits[self.config.seed][0], state=inits[self.config.seed][1]))
+    img = dataset_from_array(synthetic_volume(SHAPE, seed=4)).image()
+    cfg = dict(batch_size=16 * 16 * 4, epochs=10, lr=1e-2, optimizer="adam_tcnn")
+    want = jprotocols.ensembled_warp_fit_eval(lambda: jm, img, JaxTrainConfig(**cfg), seeds=seeds, linear_blend=0.25)
+    got = protocols.ensembled_warp_fit_eval(make_model, img, TrainConfig(**cfg), seeds=seeds, linear_blend=0.25,
+                                            device="cpu")
+    assert len(got["per_seed_odd_psnr"]) == 2
+    np.testing.assert_allclose(got["per_seed_odd_psnr"], want["per_seed_odd_psnr"], rtol=0, atol=0.05)
+    for part in ("odd", "full"):
+        assert abs(got[part]["psnr"] - want[part]["psnr"]) < 0.05
+        assert abs(got[part]["ssim"] - want[part]["ssim"]) < 5e-3

@@ -241,6 +241,7 @@ def test_registry_names():
         assert all(get_model_factory(name) is factory for name in names)
     assert set(REGISTRY) == {"siren", "SirenNet", "hash_mlp", "HashMLP", "TcnnHashMLP", "modulated_siren",
                              "ModulatedSirenNet", "hash_siren", "HashSirenNet", "psf_siren", "PsfSirenNet",
-                             "multi_siren", "MultiSiren", "multi_hash_mlp", "MultiHashMLP"}
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_model_factory("gabor")
+                             "multi_siren", "MultiSiren", "multi_hash_mlp", "MultiHashMLP", "mlp", "BaseMLP",
+                             "rff_net", "RffNet", "gabor", "GaborNet", "freq_mlp", "FreqMLP", "warp_inr"}
+    with pytest.raises(KeyError, match="unknown model"):
+        get_model_factory("no_such_model")
