@@ -49,7 +49,12 @@ Phases, each printed with its time as it ends:
    accumulation, and the modulated, hash and PSF SIRENs; then the rest of
    the zoo: BaseMLP, RffNet, the real GaborNet, FreqMLP (siren encoder
    with a skip, and rff) and the warp INR (residual, warp_accel,
-   warp_smooth, a level anneal);
+   warp_smooth, a level anneal); then the registrations at their default
+   stages on the card and on the CPU (``register_pair`` on a (352, 352)
+   pair and a (64, 64, 6) pair, ``register_group_temporal`` on 4 (352, 352)
+   frames; a smooth frame under smooth displacements): the step-0 gradient,
+   the first 10 losses, the control fields and the midpoints they
+   synthesise;
 5. main paths, each with the launch counters set to 0 just before it and
    read just after:
    - flagship: ``launcher.run`` with the defaults on a synthetic
@@ -102,6 +107,18 @@ Phases, each printed with its time as it ends:
      (92 steps each; plain torch, only the probe launches);
    - classical: the CLI with ``--method linear`` and ``cubic``, each file
      held to numpy within 1e-6;
+   - registration_protocol: ``registration_interp_eval`` at its defaults
+     (7 pairs), the odd frames' PSNR and SSIM and the wall a pair;
+     classical_registration: the CLI with ``--method registration`` and
+     ``registration_group`` (finite files, the even frames exact);
+   - stacked: ``stacked_interp_eval`` with ``STACK_ROSTER`` (warp_transfer of
+     one seed and one epoch, both registrations, cubic, linear): the global
+     LOO weights on the simplex, the odd PSNR, sigma_mean, kernels 1-2 once
+     a step of the 7 warp fits; stacking_cli: ``python -m
+     ...train.stacking`` on the volume's 8 even frames (saved as NIfTI)
+     with the same roster and a cache, twice: 7 fits and the odd frames
+     scored against the volume's, then a replay that calls no family,
+     launches nothing and writes the same volume;
    - grid routes: the flagship's and ngp's fitted models on the (352, 352,
      30) grid by the separable path and by kernel 1 per chunk (``transform=
      lambda x: x``), held to each other (atol 1e-4 / 1e-5), their device
@@ -109,8 +126,9 @@ Phases, each printed with its time as it ends:
 6. profile: device time by kernel over 20 training steps of each path (one
    epoch of 15 frames for the multi-frame models) and one grid evaluation
    of the flagship, paths A and B, ngp, protocol_tv, hash_siren and
-   warp_protocol (torch.profiler), and the warp coordinate gradient's
-   device time a step (from phase 3).
+   warp_protocol (torch.profiler), 20 steps of the registrations' full-size
+   pair and group stages, and the warp coordinate gradient's device time a
+   step (from phase 3).
 
 The last two lines are the kernels' JSON line and
 ``{"ok": true, "device": {...}}``. Any failed phase exits non-zero before
@@ -229,6 +247,22 @@ ZOO_FLAGS = {
                  "--weight_decay", "1e-5"],
     "mlp": ["--model_class", "mlp", "--dim_hidden", "352", "--n_layers", "8", "--lr", "1e-4"],
 }
+# the registrations (infer/registration.py) at their defaults: Adam at 3e-3, pyramid (4, 2, 1), control grids
+# (8, 16, 32), 200 steps a stage for a pair and 300 for the group. Card vs CPU after the default stages: Adam divides
+# each gradient by its running RMS, so where the loss is flat float rounding moves a control point by up to lr a step:
+# the fields are held within lr, and the midpoints they synthesise within 2e-4 of their largest value, or each within
+# twice as far as the CPU's own move when one input frame is perturbed by 1e-7 (N(0, 1) noise, seeded), where the
+# problem is that ill-conditioned (the group's common drift, which its 1e-4 gauge term barely holds, moves every
+# field and no midpoint); the step-0 gradient within 1e-5 of its largest entry with no sign flipped (the card's
+# reductions and products sum in other orders; the 3-D pair's gradient is small beside its terms), and the first
+# stage's first 10 losses within FIT_RTOL, as the small fits' 10-step curves (PERF.md section 2)
+REG_LR = 3e-3
+REG_FRAME, REG_FRAME_3D = (352, 352), (64, 64, 6)
+REG_MID_SHARE = 2e-4
+REG_GRAD_SHARE = 1e-5
+# the stacked fusion's roster on the card: the transfer of a one-seed, one-epoch warp INR (default_interp_families'
+# widths), the pairwise and group registrations at their defaults, cubic and linear
+STACK_ROSTER = ("warp_transfer", "registration", "registration_group", "cubic", "linear")
 TCNN_FLAGS = ["--n_levels", "16", "--n_features_per_level", "2", "--log2_hashmap_size", "19",
               "--base_resolution", "16", "--per_level_scale", "1.4", "--dim_hidden", "128", "--n_layers", "2",
               "--decoder", "relu_plain", "--lr", "1e-2", "--optimizer", "adam_tcnn"]
@@ -1451,28 +1485,10 @@ def drive_held_out_paths(path: str, tmp: str, zero: dict, paths: dict) -> None:
 def numpy_linear(volume: np.ndarray, out_shape) -> np.ndarray:
     """Multilinear resampling in float64 numpy, as ``map_coordinates(order=1,
     mode="nearest")`` computes it: at the source index j (S - 1) / (O - 1)
-    per axis, the sum over the 2^d corners of the weights' product times the
-    value, each corner index clipped to [0, S - 1]."""
-    vol = np.asarray(volume, np.float64)
-    axes = []
-    for k, out in enumerate(out_shape):
-        size = vol.shape[k]
-        pos = np.arange(out, dtype=np.float64) * ((size - 1) / max(out - 1, 1))
-        lower = np.floor(pos)
-        w = pos - lower
-        lower = lower.astype(np.int64)
-        axes.append(((np.clip(lower, 0, size - 1), 1.0 - w), (np.clip(lower + 1, 0, size - 1), w)))
-    result = np.zeros(tuple(out_shape), np.float64)
-    for corner in range(1 << vol.ndim):
-        idx, weight = [], 1.0
-        for k, ((i0, w0), (i1, w1)) in enumerate(axes):
-            i, w = (i1, w1) if (corner >> k) & 1 else (i0, w0)
-            shape = [1] * vol.ndim
-            shape[k] = len(i)
-            idx.append(i.reshape(shape))
-            weight = weight * w.reshape(shape)
-        result += weight * vol[tuple(idx)]
-    return result.astype(np.float32)
+    per axis (``numpy_sample``)."""
+    axes = [np.arange(out, dtype=np.float64) * ((size - 1) / max(out - 1, 1))
+            for size, out in zip(np.shape(volume), out_shape)]
+    return numpy_sample(volume, np.stack(np.meshgrid(*axes, indexing="ij"), axis=-1)).astype(np.float32)
 
 
 def drive_slice_nine_paths(path: str, img: np.ndarray, tmp: str, zero: dict, paths: dict) -> None:
@@ -1570,6 +1586,285 @@ def drive_slice_nine_paths(path: str, img: np.ndarray, tmp: str, zero: dict, pat
     paths["classical"] = {"launches": launches, "wall_s": seconds, "max_abs_err": errs}
     log(f"[classical] CLI --method linear / cubic on {VOLUME} (even frames to all): files within "
         f"{errs['linear']:.3e} / {errs['cubic']:.3e} of numpy; {seconds:.1f} s")
+
+
+def numpy_sample(frame: np.ndarray, idx: np.ndarray) -> np.ndarray:
+    """``map_coordinates(frame, idx, order=1, mode="nearest")`` in float64
+    numpy at voxel positions ``idx`` (..., d): the 2^d corners, each index
+    clipped to [0, S - 1]."""
+    vol = np.asarray(frame, np.float64)
+    lower = np.floor(idx)
+    w = idx - lower
+    lower = lower.astype(np.int64)
+    out = np.zeros(idx.shape[:-1], np.float64)
+    for corner in range(1 << vol.ndim):
+        index, weight = [], 1.0
+        for k in range(vol.ndim):
+            bit = (corner >> k) & 1
+            index.append(np.clip(lower[..., k] + bit, 0, vol.shape[k] - 1))
+            weight = weight * (w[..., k] if bit else 1.0 - w[..., k])
+        out += weight * vol[tuple(index)]
+    return out
+
+
+def moved(frame: np.ndarray, amp: float) -> np.ndarray:
+    """``frame`` under a smooth in-plane displacement of up to ``amp``
+    voxels (a sine along the first axis, half a cosine along the second)."""
+    grids = np.meshgrid(*[np.arange(s, dtype=np.float64) for s in frame.shape], indexing="ij")
+    disp = [amp * np.sin(2 * np.pi * grids[1] / frame.shape[1]), 0.5 * amp * np.cos(2 * np.pi * grids[0] / frame.shape[0])]
+    disp += [np.zeros_like(g) for g in grids[2:]]
+    return numpy_sample(frame, np.stack([g + d for g, d in zip(grids, disp)], axis=-1)).astype(np.float32)
+
+
+def psnr_db(pred: np.ndarray, truth: np.ndarray) -> float:
+    return float(-10.0 * np.log10(np.mean((np.asarray(pred, np.float64) - truth) ** 2)))
+
+
+def check_registration_card_vs_cpu(torch, card=None) -> dict:
+    """``register_pair`` on a (352, 352) pair and a (64, 64, 6) pair (the
+    antialiased 3-D resize on the card) and ``register_group_temporal`` on 4
+    (352, 352) frames, each at its default stages, on the card and on the
+    CPU: a smooth synthetic frame under smooth displacements of up to 6 (3
+    for 3-D) voxels. Held: the step-0 gradient of the first stage and its
+    first 10 losses, the final control fields (within lr) and the midpoints
+    they synthesise (within ``REG_MID_SHARE`` of the largest value); each of
+    the last two also passes within twice the CPU's own spread, its move
+    when the first frame is perturbed by 1e-7. Returns the differences, the
+    spreads, the walls and the midpoints' PSNR against the true midpoint."""
+    from mri_interpolation_tpu_torch.infer import registration as R
+    from mri_interpolation_tpu_torch.io import normalize_intensity, synthetic_volume
+
+    cpu, card = torch.device("cpu"), card or torch.device("cuda")
+    frame2 = normalize_intensity(synthetic_volume(REG_FRAME, seed=5))
+    frame3 = normalize_intensity(synthetic_volume(REG_FRAME_3D, seed=6))
+    out = {}
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        result = fn()
+        torch.cuda.synchronize()
+        return result, time.perf_counter() - t0
+
+    def first_stage(name, loss_of, ctrl_shape):
+        """The step-0 gradient and the first 10 losses, card vs CPU."""
+        grads, losses = {}, {}
+        for dev in (card, cpu):
+            c = torch.zeros(ctrl_shape, device=dev, requires_grad=True)
+            loss_of(dev)(c).backward()
+            grads[dev] = c.grad.cpu().numpy()
+            losses[dev] = R._adam(torch.zeros(ctrl_shape, device=dev), loss_of(dev), REG_LR, 10)[1].cpu().numpy()
+        g, ref = grads[card], grads[cpu]
+        bound = REG_GRAD_SHARE * float(np.abs(ref).max())
+        big = np.abs(ref) > bound
+        flips = int(np.sum(np.sign(g[big]) != np.sign(ref[big])))
+        grad_err = float(np.abs(g - ref).max())
+        loss_rel = float(np.max(np.abs(losses[card] - losses[cpu]) / np.abs(losses[cpu])))
+        if grad_err > bound or flips or loss_rel > FIT_RTOL:
+            fail(f"registration {name}: step-0 gradient off by {grad_err:.3e} (bound {bound:.3e}), {flips} signs "
+                 f"flipped, first losses off by {loss_rel:.3e} (rtol {FIT_RTOL})")
+        log(f"[registration] {name}: step-0 gradient {grad_err:.3e} apart (largest {float(np.abs(ref).max()):.3e}, "
+            f"bound {bound:.3e}), no sign flipped; first 10 losses within {loss_rel:.3e} (rtol {FIT_RTOL})")
+        return {"step0_grad_err": grad_err, "step0_grad_bound": bound, "first10_loss_rel": loss_rel}
+
+    def perturbed(x):
+        """``x`` plus 1e-7 N(0, 1) noise (seeded)."""
+        return x + 1e-7 * np.random.default_rng(7).standard_normal(x.shape).astype(np.float32)
+
+    def held(name, ctrl_card, ctrl_cpu, ctrl_spread, mid_card, mid_cpu, mid_spread, truth, fade, card_s, cpu_s):
+        ctrl_err = float(np.abs(ctrl_card.cpu().numpy() - ctrl_cpu.numpy()).max())
+        mid_err = float(np.abs(mid_card - mid_cpu).max())
+        c_spread = float((ctrl_spread - ctrl_cpu).abs().max())
+        spread = float(np.abs(mid_spread - mid_cpu).max())
+        ctrl_bound = max(REG_LR, 2.0 * c_spread)
+        mid_bound = max(REG_MID_SHARE * float(np.abs(mid_cpu).max()), 2.0 * spread)
+        row = {"ctrl_err": ctrl_err, "ctrl_max": float(ctrl_cpu.abs().max()), "ctrl_spread_cpu": c_spread,
+               "ctrl_bound": ctrl_bound, "mid_err": mid_err, "mid_spread_cpu": spread, "mid_bound": mid_bound,
+               "card_s": card_s, "cpu_s": cpu_s,
+               "psnr_card": psnr_db(mid_card, truth), "psnr_cpu": psnr_db(mid_cpu, truth),
+               "psnr_fade": psnr_db(fade, truth)}
+        if not (ctrl_card.device.type == card.type and ctrl_err <= ctrl_bound and mid_err <= mid_bound
+                and np.all(np.isfinite(mid_card))):
+            fail(f"registration {name}: control fields {ctrl_err:.3e} apart (bound {ctrl_bound:.3e}), midpoints "
+                 f"{mid_err:.3e} (bound {mid_bound:.3e}), fields on {ctrl_card.device}")
+        log(f"[registration] {name}: card {card_s:.2f} s, CPU {cpu_s:.2f} s; control fields {ctrl_err:.3e} apart "
+            f"(largest {row['ctrl_max']:.4f}; bound {ctrl_bound:.3e}; the CPU's own spread {c_spread:.3e}), midpoints "
+            f"{mid_err:.3e} (bound {mid_bound:.3e}; the CPU's own spread {spread:.3e}); "
+            f"midpoint PSNR card {row['psnr_card']:.3f} / CPU {row['psnr_cpu']:.3f} / cross-fade "
+            f"{row['psnr_fade']:.3f} dB")
+        return row
+
+    for name, a, amp in (("pair_" + "x".join(map(str, REG_FRAME)), frame2, 6.0),
+                         ("pair_" + "x".join(map(str, REG_FRAME_3D)), frame3, 3.0)):
+        b, truth = moved(a, amp), moved(a, amp / 2)
+        gshape = R._stage_shape(a.shape, 8, 4) + (a.ndim,)
+        row = first_stage(name, lambda dev: R._pair_loss(R._resize_frame(R._frame(a, dev), 4),
+                                                         R._resize_frame(R._frame(b, dev), 4), 1e-2), gshape)
+        ctrl_card, card_s = timed(lambda: R.register_pair(a, b, device=card))
+        ctrl_cpu, cpu_s = timed(lambda: R.register_pair(a, b, device=cpu))
+        mid_card = R.synthesize_frame(a, b, ctrl_card, device=card).cpu().numpy()
+        mid_cpu = R.synthesize_frame(a, b, ctrl_cpu, device=cpu).numpy()
+        ctrl_spread = R.register_pair(perturbed(a), b, device=cpu)
+        mid_spread = R.synthesize_frame(a, b, ctrl_spread, device=cpu).numpy()
+        out[name] = {**row, **held(name, ctrl_card, ctrl_cpu, ctrl_spread, mid_card, mid_cpu, mid_spread, truth,
+                                   0.5 * (a + b), card_s, cpu_s)}
+
+    frames = np.stack([moved(frame2, amp) for amp in (0.0, 2.0, 4.0, 6.0)], axis=-1)
+    truth = np.stack([moved(frame2, amp) for amp in (1.0, 3.0, 5.0)], axis=-1)
+    stack = np.moveaxis(frames, -1, 0)
+    group = "group_4x" + "x".join(map(str, REG_FRAME))
+    row = first_stage(group,
+                      lambda dev: R._group_loss(R._resize_frame(R._frame(stack, dev), 4, batch=1), 1e-2, 1e-1, None),
+                      (4,) + R._stage_shape(REG_FRAME, 8, 4) + (2,))
+    ctrl_card, card_s = timed(lambda: R.register_group_temporal(frames, device=card))
+    ctrl_cpu, cpu_s = timed(lambda: R.register_group_temporal(frames, device=cpu))
+    up_card = R.group_motion_upsample(frames, 7, ctrl=ctrl_card, device=card)[..., 1::2]
+    up_cpu = R.group_motion_upsample(frames, 7, ctrl=ctrl_cpu, device=cpu)[..., 1::2]
+    frames_p = frames.copy()
+    frames_p[..., 0] = perturbed(frames[..., 0])
+    ctrl_spread = R.register_group_temporal(frames_p, device=cpu)
+    up_spread = R.group_motion_upsample(frames, 7, ctrl=ctrl_spread, device=cpu)[..., 1::2]
+    out[group] = {**row, **held(group, ctrl_card, ctrl_cpu, ctrl_spread, up_card, up_cpu, up_spread, truth,
+                                            0.5 * (frames[..., :-1] + frames[..., 1:]), card_s, cpu_s)}
+    return out
+
+
+def drive_slice_ten_paths(path: str, img: np.ndarray, tmp: str, zero: dict, paths: dict) -> None:
+    """Phase 5's paths of the registration slice, each with the counters at
+    0 just before it and read just after, on the volume at ``path`` (``img``
+    as an array): registration_protocol (``registration_interp_eval`` at its
+    defaults: 7 pairs), classical_registration (the CLI with ``--method
+    registration`` and ``registration_group``), stacked
+    (``stacked_interp_eval`` with ``STACK_ROSTER``, one seed, one warp epoch)
+    and stacking_cli (``python -m ...train.stacking`` on the volume's even
+    frames saved as NIfTI, with the same roster and a prediction cache,
+    twice: the second run calls no family and writes the same volume; the
+    first one's odd frames scored against the volume's)."""
+    import torch
+    from mri_interpolation_tpu_torch.infer import classical
+    from mri_interpolation_tpu_torch.io import load_volume, nifti
+    from mri_interpolation_tpu_torch.train import TrainConfig
+    from mri_interpolation_tpu_torch.train import stacking as stk
+    from mri_interpolation_tpu_torch.train.protocols import registration_interp_eval
+
+    def counted(fn):
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        result = fn()
+        torch.cuda.synchronize()
+        return result, time.perf_counter() - t0, read_counts()
+
+    even = img[..., ::2]
+    n_pairs = even.shape[-1] - 1
+    (recon, q), seconds, launches = counted(lambda: registration_interp_eval(img))
+    scores = [q[p][m] for p in ("full", "odd") for m in ("psnr", "ssim")]
+    if launches != zero or not np.array_equal(recon[..., ::2], even) or not all(math.isfinite(v) for v in scores):
+        fail(f"registration_protocol: launches {launches}, even frames passed through "
+             f"{np.array_equal(recon[..., ::2], even)}, scores {scores}")
+    paths["registration_protocol"] = {"launches": launches, "wall_s": seconds, "wall_per_pair_s": seconds / n_pairs,
+                                      "odd": q["odd"], "full": q["full"]}
+    log(f"[registration_protocol] {n_pairs} pairs of {VOLUME[:-1]} at the default stages: odd PSNR "
+        f"{q['odd']['psnr']:.3f} dB, SSIM {q['odd']['ssim']:.4f}; full {q['full']['psnr']:.3f} dB; {seconds:.1f} s "
+        f"({seconds / n_pairs:.2f} s a pair)")
+
+    data = nifti.load(path).get_fdata(np.float32)
+    data = data / data.max()
+    walls = {}
+    for method in ("registration", "registration_group"):
+        out_path = os.path.join(tmp, f"classical_{method}.nii.gz")
+        with contextlib.redirect_stdout(io.StringIO()):
+            _, walls[method], launches = counted(lambda: classical.main([path, "--out", out_path, "--method", method]))
+        got = nifti.load(out_path).get_fdata(np.float32)
+        if (launches != zero or got.shape != VOLUME or not np.all(np.isfinite(got))
+                or not np.array_equal(got[..., ::2], data[..., ::2])):
+            fail(f"classical {method}: launches {launches}, file {got.shape}, finite {np.all(np.isfinite(got))}, "
+                 f"even frames passed through {got.shape == VOLUME and np.array_equal(got[..., ::2], data[..., ::2])}")
+    paths["classical_registration"] = {"launches": zero, "wall_s": walls}
+    log(f"[classical_registration] CLI --method registration / registration_group on {VOLUME}: files finite, "
+        f"even frames exact; {walls['registration']:.1f} / {walls['registration_group']:.1f} s")
+
+    n_frame = VOLUME[0] * VOLUME[1]
+
+    def fit_steps(t_kept: int) -> int:
+        """The warp fits' steps of one LOO protocol over ``t_kept`` frames:
+        the deployment on all, one fold on all but one per interior frame."""
+        return t_kept * n_frame // 10_000 + (t_kept - 2) * ((t_kept - 1) * n_frame // 10_000)
+
+    cfg = TrainConfig(batch_size=10_000, epochs=1, lr=1e-2, optimizer="adam_tcnn", lr_schedule="cosine",
+                      cosine_t_max=1, weight_decay=1e-5)
+    disk = stk._FIT_DISK_DIR
+    stk._FIT_DISK_DIR = ""
+    try:
+        families = stk.default_interp_families(cfg, VOLUME, seeds=(1337,), include=STACK_ROSTER)
+        (recon, q), seconds, launches = counted(lambda: stk.stacked_interp_eval(img, cfg, families=families))
+        steps = fit_steps(even.shape[-1])
+        want = {**zero, "hash_encode_forward": steps, "hash_encode_table_grad": steps}
+        w = q["weights"]["global"]
+        if (launches != want or not np.array_equal(recon[..., ::2], even) or abs(sum(w.values()) - 1.0) > 1e-6
+                or min(w.values()) < 0.0 or not math.isfinite(q["odd"]["psnr"])):
+            fail(f"stacked: launches {launches} (expected {want}), even frames passed through "
+                 f"{np.array_equal(recon[..., ::2], even)}, weights {w}, odd {q['odd']}")
+        paths["stacked"] = {"launches": launches, "wall_s": seconds, "weights": w, "odd": q["odd"], "full": q["full"],
+                            "sigma_mean": q["uncertainty"]["sigma_mean"]}
+        log(f"[stacked] roster {STACK_ROSTER}, one seed, one warp epoch: global LOO weights "
+            + ", ".join(f"{k} {v:.4f}" for k, v in w.items()) + f"; odd PSNR {q['odd']['psnr']:.3f} dB, SSIM "
+            f"{q['odd']['ssim']:.4f}; sigma_mean {q['uncertainty']['sigma_mean']:.5f}; launches {launches}; "
+            f"{seconds:.1f} s")
+
+        calls = {"n": 0}
+        make = stk.default_interp_families
+
+        def counting(*a, **k):
+            def wrap(f):
+                def family(*args):
+                    calls["n"] += 1
+                    return f(*args)
+
+                return family
+
+            return {n: wrap(f) for n, f in make(*a, **k).items()}
+
+        stk.default_interp_families = counting
+        even_path = os.path.join(tmp, "even_frames.nii.gz")
+        nifti.save(even, even_path)
+        runs = []
+        try:
+            for run in range(2):
+                out_path = os.path.join(tmp, f"stacked_sr{run}.nii.gz")
+                argv = [even_path, "--out", out_path, "--families", ",".join(STACK_ROSTER), "--seeds", "1337", "--epochs",
+                        "1", "--cache_dir", os.path.join(tmp, "stack_cache")]
+                calls["n"] = 0
+                with contextlib.redirect_stdout(io.StringIO()):
+                    rec, seconds, launches = counted(lambda: stk._main(argv))
+                runs.append({"calls": calls["n"], "wall_s": seconds, "launches": launches, "weights":
+                             rec["global_weights"], "volume": nifti.load(out_path).get_fdata(np.float32)})
+        finally:
+            stk.default_interp_families = make
+    finally:
+        stk._FIT_DISK_DIR = disk
+    T = even.shape[-1]
+    steps = fit_steps(T)
+    first, second = runs
+    lo, hi = float(even.min()), float(even.max())  # the CLI's normalisation of its input
+    odd_psnr = psnr_db(first["volume"][..., 1::2], (img[..., 1::2] - lo) / (hi - lo))
+    want = {**zero, "hash_encode_forward": steps, "hash_encode_table_grad": steps}
+    n_calls = len(STACK_ROSTER) * (1 + T - 2)
+    t_up = 2 * (T - 1) + 1
+    if (first["launches"] != want or first["calls"] != n_calls or second["calls"] != 0 or second["launches"] != zero
+            or first["volume"].shape != VOLUME[:-1] + (t_up,) or not np.all(np.isfinite(first["volume"]))
+            or first["volume"].tobytes() != second["volume"].tobytes()
+            or not np.array_equal(first["volume"][..., ::2], load_volume(even_path).image())):
+        fail(f"stacking_cli: first run {first['calls']} family calls (expected {n_calls}), launches "
+             f"{first['launches']} (expected {want}); second run {second['calls']} calls, launches "
+             f"{second['launches']}; volume {first['volume'].shape}, replay identical "
+             f"{first['volume'].tobytes() == second['volume'].tobytes()}")
+    paths["stacking_cli"] = {"launches": first["launches"], "wall_s": first["wall_s"],
+                             "replay_wall_s": second["wall_s"], "weights": first["weights"], "odd_psnr": odd_psnr}
+    log(f"[stacking_cli] the {T} even frames of {VOLUME} to {t_up} frames, roster {STACK_ROSTER}: {first['calls']} "
+        f"family calls, launches {first['launches']}, {first['wall_s']:.1f} s; the odd frames against the volume's: "
+        f"PSNR {odd_psnr:.3f} dB; replay from the cache: no family called, no launch, the same volume bit for bit, "
+        f"{second['wall_s']:.1f} s; global weights " + ", ".join(f"{k} {v:.4f}" for k, v in first["weights"].items()))
 
 
 def check_grid_routes(paths: dict) -> dict:
@@ -1718,7 +2013,8 @@ def profile_main_paths(torch) -> None:
     torch.profiler (which slows the host, so the busy shares are lower
     bounds)."""
     from mri_interpolation_tpu_torch.infer import evaluate_grid
-    from mri_interpolation_tpu_torch.io import dataset_from_array, synthetic_volume
+    from mri_interpolation_tpu_torch.infer import registration as R
+    from mri_interpolation_tpu_torch.io import dataset_from_array, normalize_intensity, synthetic_volume
     from mri_interpolation_tpu_torch.io import even_frame_training_set
     from mri_interpolation_tpu_torch.models import (make_hash_mlp, make_hash_siren, make_multi_hash_mlp,
                                                     make_multi_siren, make_psf_siren, make_siren, make_warp_inr)
@@ -1742,6 +2038,9 @@ def profile_main_paths(torch) -> None:
     warp = make_warp_inr(3, **WARP)
     warp_coords, warp_values = even_frame_training_set(img)
     warp_ds = types.SimpleNamespace(coords=warp_coords, values=warp_values)
+    frame = normalize_intensity(synthetic_volume(REG_FRAME, seed=5))
+    reg_a, reg_b = (torch.from_numpy(f).cuda() for f in (frame, moved(frame, 6.0)))
+    reg_even = torch.from_numpy(np.ascontiguousarray(np.moveaxis(img[..., ::2], -1, 0))).cuda()
     fit = lambda model, d, cfg, n: lambda: Trainer(cfg).fit(model, d.coords[:n], d.values[:n])  # noqa: E731
     phases = (
         ("flagship train_step", fit(flagship, ds, TrainConfig(epochs=1), 200_000), 20),
@@ -1768,6 +2067,10 @@ def profile_main_paths(torch) -> None:
             multi_siren, 2 * frame_coords - 1, 2 * frame_values - 1), 15),
         ("multi_hash_mlp grid_eval_352x352 x15", lambda: [evaluate_grid(multi_hash, FRAME, frame_idx=t)
                                                           for t in range(15)], 15),
+        ("registration pair stage step (352x352, control 32x32)", lambda: R._register_stage(
+            reg_a, reg_b, torch.zeros(32, 32, 2, device=reg_a.device), REG_LR, 1e-2, 20), 20),
+        ("registration group stage step (8 x 352x352, control 32x32)", lambda: R._register_group_stage(
+            reg_even, torch.zeros(8, 32, 32, 2, device=reg_a.device), REG_LR, 1e-2, 1e-1, 20), 20),
     )
     for phase, fn, per in phases:
         kernels, wall_ms = profile_device(fn)
@@ -1860,6 +2163,9 @@ def main() -> int:
     rels.update(small_zoo_fits(torch))
     log(f"[small fit] 10 steps each, card vs CPU loss curves, max rel diff (rtol {FIT_RTOL}): "
         + ", ".join(f"{k} {v:.3e}" for k, v in rels.items()) + f" in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    check_registration_card_vs_cpu(torch)
+    log(f"[registration] card vs CPU done in {time.perf_counter() - t0:.1f} s")
 
     # 5. main paths
     zero = {name: 0 for name in SOURCES}
@@ -1888,6 +2194,7 @@ def main() -> int:
         drive_ngp_paths(path, tmp, zero, paths)
         drive_held_out_paths(path, tmp, zero, paths)
         drive_slice_nine_paths(path, img, tmp, zero, paths)
+        drive_slice_ten_paths(path, img, tmp, zero, paths)
         check_grid_routes(paths)
 
     # the kernel bench: each timed call runs once to check, 3 times to warm up, ITERS times timed

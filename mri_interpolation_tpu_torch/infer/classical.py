@@ -11,11 +11,13 @@ Port of ``mri_interpolation_tpu/infer/classical.py``:
   differ at the edges. Runs on ``device`` (``cuda`` unless ``"cpu"``);
 - ``cubic_interpolate_frames``: per-voxel non-uniform cubic Hermite across
   the last axis, in numpy as in JAX;
-- ``temporal_upsample_classical``: ``linear`` and ``cubic``; the
-  registration methods wait for ``infer/registration.py`` (ROADMAP.md,
-  queue 1) and raise ``NotImplementedError``;
+- ``temporal_upsample_classical``: ``linear``, ``cubic``, and the
+  motion-compensated ``registration`` (pairwise midpoints) and
+  ``registration_group`` (one trajectory, Catmull-Rom over the fields) of
+  ``infer/registration.py``, on ``device``;
 - ``main``: the CLI (``python -m mri_interpolation_tpu_torch.infer.classical
-  vol.nii.gz [--slice_z 3] [--method linear|cubic] [--device cpu]``).
+  vol.nii.gz [--slice_z 3] [--method linear|cubic|registration|
+  registration_group] [--device cpu]``).
 """
 
 from __future__ import annotations
@@ -88,9 +90,11 @@ def temporal_upsample_classical(src: np.ndarray, t_full: int, method: str = "lin
                                 device: DeviceLike = None) -> np.ndarray:
     """Rebuild a ``t_full``-frame temporal grid from the frames of ``src``,
     the observed frames on every other output frame: ``linear``
-    (multilinear resampling, on ``device``) or ``cubic`` (per-voxel cubic
-    Hermite). Methods other than ``linear`` need ``t_full`` in (2T - 1, 2T)
-    for a T-frame ``src``."""
+    (multilinear resampling), ``cubic`` (per-voxel cubic Hermite),
+    ``registration`` (pairwise symmetric registration midpoints) or
+    ``registration_group`` (group registration, the trajectory interpolated
+    by Catmull-Rom), on ``device``. Methods other than ``linear`` need
+    ``t_full`` in (2T - 1, 2T) for a T-frame ``src``."""
     T = src.shape[-1]
     if method != "linear" and t_full not in (2 * T - 1, 2 * T):
         raise ValueError(f"t_full={t_full} incompatible with {T} source frames for method={method!r} (expected 2T-1 "
@@ -101,9 +105,14 @@ def temporal_upsample_classical(src: np.ndarray, t_full: int, method: str = "lin
         t_keep = [min(2 * j, t_full - 1) / (t_full - 1) for j in range(T)]
         t_eval = [i / (t_full - 1) for i in range(t_full)]
         return cubic_interpolate_frames(src, t_keep, t_eval)
-    if method in ("registration", "registration_group"):
-        raise NotImplementedError(f"method {method!r} needs infer/registration.py, not ported yet: ROADMAP.md, "
-                                  "queue 1")
+    if method == "registration":
+        from .registration import motion_compensated_upsample
+
+        return motion_compensated_upsample(src, t_full, device=device)
+    if method == "registration_group":
+        from .registration import group_motion_upsample
+
+        return group_motion_upsample(src, t_full, device=device)
     raise ValueError(f"unknown method {method!r}; expected one of {', '.join(METHODS)}")
 
 
@@ -124,7 +133,7 @@ def main(argv: Optional[Sequence[str]] = None) -> np.ndarray:
     p.add_argument("--even_frames", action=argparse.BooleanOptionalAction, default=True,
                    help="interpolate from the even frames only (--no-even_frames uses all frames)")
     p.add_argument("--method", default="linear", choices=list(METHODS),
-                   help="temporal interpolator (registration methods: not ported yet)")
+                   help="temporal interpolator (see temporal_upsample_classical)")
     p.add_argument("--device", default=None, help="device to run on: cuda (the default) or cpu")
     args = p.parse_args(argv)
 

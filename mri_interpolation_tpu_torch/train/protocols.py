@@ -12,9 +12,10 @@
   the zero-filled baseline;
 - ``ensembled_warp_fit_eval``: the even-frame protocol fitted once per
   seed, the full-grid reconstructions averaged (and optionally blended with
-  the linear baseline), then scored.
-
-The registration protocol waits for ``infer/registration.py`` (ROADMAP.md).
+  the linear baseline), then scored;
+- ``registration_interp_eval``: the even-frame protocol for the pairwise
+  registration interpolator (``infer/registration.py``), which fits no
+  network.
 """
 
 from __future__ import annotations
@@ -33,7 +34,22 @@ from ..utils.imaging import create_rn_mask
 from .trainer import TrainConfig, Trainer, TrainResult
 
 __all__ = ["key_frame_subset", "two_phase_hash_fit", "even_frame_fit_eval", "undersampled_fit_eval",
-           "ensembled_warp_fit_eval"]
+           "ensembled_warp_fit_eval", "registration_interp_eval"]
+
+
+def registration_interp_eval(image: np.ndarray, device: DeviceLike = None, **reg_kwargs) -> Tuple[np.ndarray, dict]:
+    """The even-frame protocol scored for the pairwise registration
+    interpolator: the even frames pass through, each odd frame is the
+    motion-compensated midpoint of its neighbours
+    (``motion_compensated_upsample(..., **reg_kwargs)`` on ``device``).
+    Returns (reconstruction, {"full": metrics, "odd": metrics})."""
+    from ..infer.registration import motion_compensated_upsample
+
+    dev = resolve_device(device)
+    train_img, _ = even_frame_split(image)
+    recon = motion_compensated_upsample(train_img, image.shape[-1], device=dev, **reg_kwargs)
+    full_q, odd_q = _scores(recon, image, 1.0, dev)
+    return recon, {"full": full_q, "odd": odd_q}
 
 
 def key_frame_subset(coords: np.ndarray, values: np.ndarray, image_shape: Sequence[int],

@@ -74,8 +74,8 @@ def test_temporal_upsample_refusals():
     with pytest.raises(ValueError, match="incompatible"):
         classical.temporal_upsample_classical(src, 12, method="cubic", device="cpu")
     for method in ("registration", "registration_group"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            classical.temporal_upsample_classical(src, 7, method=method, device="cpu")
+        with pytest.raises(ValueError, match="incompatible"):
+            classical.temporal_upsample_classical(src, 12, method=method, device="cpu")
     with pytest.raises(ValueError, match="unknown method"):
         classical.temporal_upsample_classical(src, 7, method="nearest", device="cpu")
 

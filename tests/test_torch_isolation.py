@@ -366,6 +366,39 @@ def test_slice_nine_entry_points_raise_without_a_card(no_card, tmp_path):
     assert set(he.LAUNCHES.values()) == {0} and set(fm.LAUNCHES.values()) == {0}
 
 
+def test_slice_ten_entry_points_raise_without_a_card(no_card, tmp_path):
+    """The registrations, the registration protocol, the classical CLI's
+    registration methods and the stacked fusion run on the card or raise;
+    with the CPU asked for they run there."""
+    from mri_interpolation_tpu_torch.infer import classical, registration
+    from mri_interpolation_tpu_torch.io import nifti, synthetic_volume
+    from mri_interpolation_tpu_torch.train import protocols, stacking
+
+    image = synthetic_volume((6, 6, 5), seed=0)
+    small = dict(ctrl_sizes=(2,), pyramid=(1,), steps=2)
+    for call in (lambda: registration.register_pair(image[..., 0], image[..., 1]),
+                 lambda: registration.register_group_temporal(image),
+                 lambda: registration.motion_transfer_at(image, [0, 1, 2, 3, 4], [0.5], lambda x: x[:, :2] * 0),
+                 lambda: protocols.registration_interp_eval(image),
+                 lambda: stacking.default_interp_families(TrainConfig(), image.shape),
+                 lambda: stacking.stacked_interp_eval(image, TrainConfig())):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    path = str(tmp_path / "vol.nii.gz")
+    nifti.save(image, path)
+    for argv in ([path, "--out", str(tmp_path / "o.nii.gz"), "--method", "registration"],
+                 [path, "--out", str(tmp_path / "o.nii.gz"), "--method", "registration_group"]):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            classical.main(argv)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        stacking._main([path, "--out", str(tmp_path / "sr.nii.gz"), "--families", "linear"])
+    assert sorted(p.name for p in tmp_path.iterdir()) == ["vol.nii.gz"]
+    recon, q = protocols.registration_interp_eval(image, device="cpu", **small)
+    assert recon.shape == image.shape and np.isfinite(q["odd"]["psnr"])
+    ctrl = registration.register_pair(image[..., 0], image[..., 1], device="cpu", **small)
+    assert ctrl.device.type == "cpu"
+
+
 def test_evaluate_grid_refuses_a_model_on_another_device():
     model = make_hash_mlp(3, device="cpu", **TINY)
     with pytest.raises(ValueError, match="model is on"):
