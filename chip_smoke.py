@@ -32,7 +32,9 @@ Phases, each printed with its time as it ends:
    [-1, 1], and on the temporal protocol's at N = 10,000; kernels 5-6 on
    the protocol's relu 16-64-1 decoder; kernels 1-2 on the warp INR's 2-D
    encoder at N = 10,000 and 131,072, x = clip(u + 0.05 n, 0, 1), with the
-   plain-torch coordinate gradient beside them, card against CPU), with
+   plain-torch coordinate gradient beside them, card against CPU; kernels
+   1-2 on the full-4D recipe's encoder, 5 levels x F = 4 at 16 corners,
+   12,134,251 rows, at N = 50,000 and 131,072, x in [0, 1]), with
    times (the
    profiler's device time, or CUDA events over a CUDA graph where it records
    none; kernel 5's forward rows hold its split prologue and its forward
@@ -54,7 +56,9 @@ Phases, each printed with its time as it ends:
    pair and a (64, 64, 6) pair, ``register_group_temporal`` on 4 (352, 352)
    frames; a smooth frame under smooth displacements): the step-0 gradient,
    the first 10 losses, the control fields and the midpoints they
-   synthesise;
+   synthesise; and ``Trainer.fit_streaming`` card against CPU, its first
+   10 losses, for the recipe's shape cut to a (16, 16, 6, 5) volume and for
+   the flagship HashMLP at its width on the (352, 352, 15) volume;
 5. main paths, each with the launch counters set to 0 just before it and
    read just after:
    - flagship: ``launcher.run`` with the defaults on a synthetic
@@ -119,6 +123,24 @@ Phases, each printed with its time as it ends:
      with the same roster and a cache, twice: 7 fits and the odd frames
      scored against the volume's, then a replay that calls no family,
      launches nothing and writes the same volume;
+   - full4d: the full-4D recipe (``scripts/experiments.py:398-402``) on a
+     synthetic (352, 352, 6, 15) volume written as uncompressed NIfTI
+     through ``launcher.main``: ``--plan`` (no device), full4d_resident (1
+     epoch of 30: 223 steps at batch 50,000, then the (352, 352, 6, 30)
+     interpolation) and full4d_streamed (``--stream_shard_voxels 4194304``:
+     3 shards of 83 steps; no interpolation grid), with steps/s, the
+     streamed epoch's host-synthesis and host-to-device seconds, each run's
+     peak of allocated device memory and PSNR; the plan's table, decoder,
+     Adam-moment and dataset bytes held exactly to the resident fit's, its
+     step total printed beside both peaks, and the step roofline fed the
+     resident steps/s;
+   - the tooling: a ``--config_yaml`` run, a 2-D launcher run whose
+     ``pred.png`` is decoded and held to viridis of ``pred.T``,
+     ``make_figures`` on protocol_tv's run directory, the sweep CLI (2
+     ``recon`` trials of 1 epoch and 2 ``odd_frames`` trials with
+     ``--ens_seeds 2``, then both again from their logs, launching nothing)
+     and a SIREN preset fit of a synthetic MNIST digit; ngp's run also
+     writes its TensorBoard event file, read back equal to its scalars;
    - grid routes: the flagship's and ngp's fitted models on the (352, 352,
      30) grid by the separable path and by kernel 1 per chunk (``transform=
      lambda x: x``), held to each other (atol 1e-4 / 1e-5), their device
@@ -126,7 +148,8 @@ Phases, each printed with its time as it ends:
 6. profile: device time by kernel over 20 training steps of each path (one
    epoch of 15 frames for the multi-frame models) and one grid evaluation
    of the flagship, paths A and B, ngp, protocol_tv, hash_siren and
-   warp_protocol (torch.profiler), 20 steps of the registrations' full-size
+   warp_protocol (torch.profiler), 20 steps of the full-4D recipe at batch
+   50,000, 20 steps of the registrations' full-size
    pair and group stages, and the warp coordinate gradient's device time a
    step (from phase 3).
 
@@ -266,6 +289,22 @@ STACK_ROSTER = ("warp_transfer", "registration", "registration_group", "cubic", 
 TCNN_FLAGS = ["--n_levels", "16", "--n_features_per_level", "2", "--log2_hashmap_size", "19",
               "--base_resolution", "16", "--per_level_scale", "1.4", "--dim_hidden", "128", "--n_layers", "2",
               "--decoder", "relu_plain", "--lr", "1e-2", "--optimizer", "adam_tcnn"]
+# the full-4D recipe (scripts/experiments.py:398-402) on the ankle volume's (352, 352, 6, 15) shape: 5 levels x F = 4,
+# paper growth, the base rank-adapted to (64, 64, 2, 3) as the launcher derives it (12,134,251 rows, levels 0-3
+# dense, 4 hashed), relu_plain 20 -> 64 -> 1, adam_tcnn at 1e-2 with the cosine over its 30 epochs, batch 50,000
+# (16 corners a point and level); its interpolation grid doubles the time axis
+FULL4D_VOLUME = (352, 352, 6, 15)
+FULL4D_GRID = (352, 352, 6, 30)
+FULL4D = dict(n_levels=5, n_features_per_level=4, log2_hashmap_size=23, base_resolution=(64, 64, 2, 3),
+              finest_resolution=(352, 352, 6, 15), growth="paper")
+FULL4D_FLAGS = ["--model_class", "hash_mlp", "--batch_size", "50000", "--n_levels", "5", "--n_features_per_level",
+                "4", "--growth", "paper", "--decoder", "relu_plain", "--optimizer", "adam_tcnn", "--lr", "1e-2",
+                "--lr_schedule", "cosine", "--cosine_t_max", "30", "--save_checkpoint", "false", "--epochs", "1"]
+FULL4D_STEPS = 352 * 352 * 6 * 15 // 50_000  # 223: one resident epoch
+STREAM_SHARD = 1 << 22  # the JAX launcher's default shard: 83 steps of 50,000, so 3 shards and 249 steps an epoch
+STREAM_STEPS = -(-352 * 352 * 6 * 15 // (STREAM_SHARD // 50_000 * 50_000)) * (STREAM_SHARD // 50_000)
+FULL4D_CHUNKS = -(-352 * 352 * 6 * 15 // (1 << 17))  # 86: the reconstruction's chunks (a hashed level: per chunk)
+FULL4D_GRID_CHUNKS = -(-352 * 352 * 6 * 30 // (1 << 17))  # 171
 
 
 def log(msg: str) -> None:
@@ -1354,6 +1393,15 @@ def check_ngp_run(out: dict) -> None:
     if not math.isclose(got, want, rel_tol=1e-12) or adam_steps != {NGP_STEPS} or opt["updates"] != NGP_STEPS:
         fail(f"ngp: step_{NGP_STEPS}.pt: rate {got} (closed form {want}), Adam steps {adam_steps}, "
              f"{opt['updates']} updates")
+    from mri_interpolation_tpu_torch.train.tb_events import read_event_file
+
+    tb = os.path.join(out["run_dir"], "tb")
+    (event_file,) = os.listdir(tb)
+    events = list(read_event_file(os.path.join(tb, event_file)))[1:]
+    if ([(e["step"], e["scalars"][0][0]) for e in events] != [(r["step"], r["tag"]) for r in recs]
+            or not np.array_equal([e["scalars"][0][1] for e in events], np.float32([r["value"] for r in recs]))):
+        fail(f"ngp: the TensorBoard event file ({len(events)} scalars) differs from scalars.jsonl ({len(recs)})")
+    log(f"[ngp] tb/{event_file}: {len(events)} scalar events, equal to scalars.jsonl")
     out.update(eval_psnr=psnr, lr_at_update_184=got, first_loss=losses[0], last_losses=losses[-10:])
     log(f"[ngp] eval PSNR by epoch {psnr}; step_{NGP_STEPS}.pt: rate of update {NGP_STEPS - 1} {got:.6e} = closed "
         f"form {want:.6e}, Adam count {NGP_STEPS}; checkpoints {ckpts}")
@@ -1392,7 +1440,7 @@ def drive_ngp_paths(path: str, tmp: str, zero: dict, paths: dict) -> None:
     paths["ngp"] = drive_path(
         "ngp", "launcher.main, NGP 3-level F=8 paper+cosine",
         lambda: cli(launcher, [*NGP_FLAGS, "--lr_schedule", "cosine", "--cosine_t_max", "2", "--epochs", "2",
-                               "--eval_every_epochs", "1", "--checkpoint_every_epochs", "1",
+                               "--eval_every_epochs", "1", "--checkpoint_every_epochs", "1", "--tb_events", "true",
                                "--output_root", os.path.join(tmp, "ngp"), *grid]),
         2 * NGP_STEPS, 10_000, {**zero, "hash_encode_forward": 2 * NGP_STEPS + 2,
                                 "hash_encode_table_grad": 2 * NGP_STEPS,
@@ -1747,14 +1795,6 @@ def drive_slice_ten_paths(path: str, img: np.ndarray, tmp: str, zero: dict, path
     from mri_interpolation_tpu_torch.train import stacking as stk
     from mri_interpolation_tpu_torch.train.protocols import registration_interp_eval
 
-    def counted(fn):
-        torch.cuda.synchronize()
-        reset_counts()
-        t0 = time.perf_counter()
-        result = fn()
-        torch.cuda.synchronize()
-        return result, time.perf_counter() - t0, read_counts()
-
     even = img[..., ::2]
     n_pairs = even.shape[-1] - 1
     (recon, q), seconds, launches = counted(lambda: registration_interp_eval(img))
@@ -1865,6 +1905,341 @@ def drive_slice_ten_paths(path: str, img: np.ndarray, tmp: str, zero: dict, path
         f"family calls, launches {first['launches']}, {first['wall_s']:.1f} s; the odd frames against the volume's: "
         f"PSNR {odd_psnr:.3f} dB; replay from the cache: no family called, no launch, the same volume bit for bit, "
         f"{second['wall_s']:.1f} s; global weights " + ", ".join(f"{k} {v:.4f}" for k, v in first["weights"].items()))
+
+
+def check_full4d_hash_kernels(torch, he, dev) -> dict:
+    """Kernels 1 and 2 on the full-4D recipe's encoder (``FULL4D``, 12,134,251
+    rows x F = 4, 16 corners a point and level; every level global in kernel
+    2's plan) at its training batch (N = 50,000) and a grid chunk (N =
+    131,072), x in [0, 1], a table drawn U(-1, 1); returns per-kernel rows."""
+    from mri_interpolation_tpu_torch.encodings import HashGridEncoding
+
+    gen = torch.Generator(device="cpu").manual_seed(14)
+    enc = HashGridEncoding(dim=4, **FULL4D)
+    table = (torch.rand((enc.total_size, enc.n_features_per_level), generator=gen) * 2 - 1).to(dev)
+    rows = {"hash_encode_forward": [], "hash_encode_table_grad": []}
+    for n, what in ((50_000, "train batch"), (1 << 17, "grid chunk")):
+        plan = he.table_grad_plan(enc, n)
+        log(f"[kernels] full4d: {enc.total_size:,d} rows x F={enc.n_features_per_level}, dense "
+            f"{enc.level_dense.tolist()}, resolutions {enc.level_resolutions.tolist()}, plan at N={n:,d} {plan}")
+        x = torch.rand((n, 4), generator=gen)
+        x[0], x[1] = 0.0, 1.0
+        g = torch.randn((n, enc.output_dim), generator=gen)
+        for name, row in encoder_rows(torch, he, enc, table, x.to(dev), g.to(dev), f"{what}, x in [0, 1]",
+                                      "full4d").items():
+            rows[name].append(row)
+    return rows
+
+
+def stream_matches_cpu(torch, name: str, make_model, volume, cfg, shard_voxels: int) -> float:
+    """``Trainer.fit_streaming`` of one init on the card and on the CPU (the
+    hash table redrawn U(-0.5, 0.5), as ``small_fit_setup``): the first 10
+    losses within rtol FIT_RTOL; returns their largest relative difference."""
+    from mri_interpolation_tpu_torch.train import Trainer
+
+    state = make_model("cpu").state_dict()
+    state["encoder.table"] = torch.empty(state["encoder.table"].shape).uniform_(
+        -0.5, 0.5, generator=torch.Generator().manual_seed(6))
+    losses = {}
+    for dev in ("cuda", "cpu"):
+        model = make_model(dev)
+        model.load_state_dict(state)
+        losses[dev] = Trainer(cfg).fit_streaming(model, volume, shard_voxels=shard_voxels, device=dev).losses
+    card, cpu = losses["cuda"][:10], losses["cpu"][:10]
+    if len(cpu) != 10 or not np.all(np.isfinite(losses["cuda"])):
+        fail(f"streamed fit {name}: {len(losses['cpu'])} steps, card losses {losses['cuda']}")
+    rel = float(np.max(np.abs(card - cpu) / np.abs(cpu)))
+    if rel > FIT_RTOL:
+        fail(f"streamed fit {name}: card and CPU loss curves differ by {rel} > rtol {FIT_RTOL}")
+    return rel
+
+
+def check_streaming_card_vs_cpu(torch) -> dict:
+    """``fit_streaming`` card against CPU, the first 10 steps: the recipe's
+    shape cut to a (16, 16, 6, 5) volume (3 steps of 256 a shard, 10 shards,
+    the last padded), and the flagship HashMLP at its width on the (352, 352,
+    15) volume (10 steps of 10,000 a shard, 19 shards)."""
+    from mri_interpolation_tpu_torch.io import synthetic_volume
+    from mri_interpolation_tpu_torch.models import make_hash_mlp
+    from mri_interpolation_tpu_torch.train import TrainConfig
+
+    small4d = dict(n_levels=5, n_features_per_level=4, log2_hashmap_size=12, base_resolution=(2, 2, 2, 2),
+                   finest_resolution=(16, 16, 6, 5), growth="paper", decoder="relu_plain", dim_hidden=64, seed=5)
+    return {
+        "full4d cut to (16, 16, 6, 5)": stream_matches_cpu(
+            torch, "full4d small", lambda d: make_hash_mlp(4, device=d, **small4d),
+            synthetic_volume((16, 16, 6, 5), seed=3),
+            TrainConfig(batch_size=256, lr=1e-2, optimizer="adam_tcnn", lr_schedule="cosine", cosine_t_max=30,
+                        seed=7), 768),
+        "flagship (352, 352, 15)": stream_matches_cpu(
+            torch, "flagship", lambda d: make_hash_mlp(3, device=d, seed=5), synthetic_volume(VOLUME, seed=0),
+            TrainConfig(batch_size=10_000, seed=7), 100_000),
+    }
+
+
+def read_png(path: str) -> np.ndarray:
+    """An 8-bit gray or RGB PNG whose rows all carry filter 0 (what
+    ``io/png.py`` writes), decoded with zlib alone."""
+    import struct
+    import zlib
+
+    data = open(path, "rb").read()
+    if data[:8] != b"\x89PNG\r\n\x1a\n":
+        fail(f"{path}: not a PNG")
+    pos, idat, hdr = 8, b"", None
+    while pos < len(data):
+        (length,) = struct.unpack(">I", data[pos:pos + 4])
+        kind, body = data[pos + 4:pos + 8], data[pos + 8:pos + 8 + length]
+        if zlib.crc32(kind + body) & 0xFFFFFFFF != struct.unpack(">I", data[pos + 8 + length:pos + 12 + length])[0]:
+            fail(f"{path}: chunk {kind} fails its CRC")
+        if kind == b"IHDR":
+            hdr = struct.unpack(">IIBBBBB", body)
+        elif kind == b"IDAT":
+            idat += body
+        pos += 12 + length
+    w, h, depth, color = hdr[:4]
+    channels = {0: 1, 2: 3}[color]
+    rows = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(h, 1 + w * channels)
+    if depth != 8 or rows[:, 0].any():
+        fail(f"{path}: bit depth {depth}, filters {set(rows[:, 0].tolist())}")
+    return rows[:, 1:].reshape((h, w) if channels == 1 else (h, w, 3))
+
+
+def counted(fn):
+    """``fn()`` with the counters at 0 just before and read just after:
+    (result, seconds, launches)."""
+    import torch
+
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    result = fn()
+    torch.cuda.synchronize()
+    return result, time.perf_counter() - t0, read_counts()
+
+
+def drive_full4d(torch, tmp: str, zero: dict, paths: dict) -> dict:
+    """The full-4D recipe on a synthetic (352, 352, 6, 15) volume written as
+    uncompressed NIfTI, through ``launcher.main``: ``--plan`` (no device),
+    full4d_resident (1 epoch of 30, 223 steps, the (352, 352, 6, 30)
+    interpolation) and full4d_streamed (``--stream_shard_voxels 4194304``:
+    3 shards of 83 steps, no interpolation grid), each with the counters at
+    0 just before it and read just after and its peak of allocated device
+    memory. The plan's table, decoder and optimizer bytes are held exactly
+    to the resident fit's parameters and Adam's two moment buffers, its
+    dataset bytes to the (coords, values) the fit put on the card; the
+    step roofline is fed the resident run's steps/s. Returns the plan."""
+    from mri_interpolation_tpu_torch import launcher
+    from mri_interpolation_tpu_torch.encodings import HashGridEncoding
+    from mri_interpolation_tpu_torch.io import nifti, synthetic_volume
+    from mri_interpolation_tpu_torch.plan import step_roofline
+    from mri_interpolation_tpu_torch.train import trainer as trainer_mod
+
+    t0 = time.perf_counter()
+    path = os.path.join(tmp, "synthetic_352x352x6x15.nii")
+    nifti.save(synthetic_volume(FULL4D_VOLUME, seed=0), path)
+    log(f"[full4d] volume {FULL4D_VOLUME} written uncompressed in {time.perf_counter() - t0:.1f} s")
+    base = ["--image_path", path, *FULL4D_FLAGS]
+
+    (plan, seconds, launches) = counted(lambda: cli(launcher, [*base, "--plan"]))
+    if launches != zero:
+        fail(f"full4d --plan: launches {launches}")
+    log(f"[full4d] --plan in {seconds:.3f} s: bytes {json.dumps(plan['bytes'])}; {plan['recommendations']}")
+
+    # spies on the resident fit: the optimizer it makes and the arrays it puts on the card
+    captured = {}
+    make_optimizer, fit = trainer_mod.make_optimizer, trainer_mod.Trainer.fit
+
+    def spy_optimizer(cfg, params):
+        captured["optimizer"] = make_optimizer(cfg, params)
+        return captured["optimizer"]
+
+    def spy_fit(self, model, coords, values, **kw):
+        captured["dataset"] = sum(np.asarray(a, dtype=np.float32).nbytes for a in (coords, values))
+        return fit(self, model, coords, values, **kw)
+
+    runs = {}
+    for name, flags, steps, chunks in (
+            ("full4d_resident", ["--interp_shapes", str(FULL4D_GRID)], FULL4D_STEPS,
+             FULL4D_CHUNKS + FULL4D_GRID_CHUNKS),
+            ("full4d_streamed", ["--stream_shard_voxels", str(STREAM_SHARD), "--interp_shapes", "()"], STREAM_STEPS,
+             FULL4D_CHUNKS)):
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        trainer_mod.make_optimizer, trainer_mod.Trainer.fit = spy_optimizer, spy_fit
+        try:
+            summary, seconds, launches = counted(
+                lambda: cli(launcher, [*base, *flags, "--output_root", os.path.join(tmp, name)]))
+        finally:
+            trainer_mod.make_optimizer, trainer_mod.Trainer.fit = make_optimizer, fit
+        peak = torch.cuda.max_memory_allocated()
+        want = {**zero, "hash_encode_forward": steps + chunks, "hash_encode_table_grad": steps,
+                "fused_mlp_forward": steps + chunks, "fused_mlp_backward": steps, "probe": 1}
+        if summary["steps"] != steps or launches != want or not math.isfinite(summary["psnr"]):
+            fail(f"{name}: {summary['steps']} steps, PSNR {summary['psnr']}, launches {launches}; expected {steps} "
+                 f"steps, launches {want}")
+        files = set(os.listdir(summary["run_dir"]))
+        if "pred.nii.gz" not in files or (name == "full4d_resident") != (f"interpolation{FULL4D_GRID}.nii.gz" in files):
+            fail(f"{name}: run directory holds {sorted(files)}")
+        train_s = summary["train_wall_s"]
+        runs[name] = out = {
+            "run_dir": summary["run_dir"], "steps": steps, "train_wall_s": train_s, "steps_per_s": steps / train_s,
+            "train_voxel_evals_per_s": steps * 50_000 / train_s, "recon_eval_s": summary["recon_eval_s"],
+            "interp_eval_s": summary["interp_eval_s"], "psnr": summary["psnr"], "ssim": summary["ssim"],
+            "final_loss": summary["final_loss"], "wall_s": seconds, "launches": launches,
+            "peak_allocated_bytes": peak, "allocated_before_bytes": before, "stream": summary.get("stream")}
+        log(f"[{name}] launcher.main: {steps} steps in {train_s:.3f} s = {out['steps_per_s']:.1f} steps/s, "
+            f"{out['train_voxel_evals_per_s']:,.0f} training voxel-evals/s; reconstruction "
+            f"{summary['recon_eval_s']:.3f} s, interpolation {summary['interp_eval_s']}; PSNR {summary['psnr']:.3f} dB, "
+            f"SSIM {summary['ssim']:.4f}; peak allocated {peak / 1e9:.3f} GB ({before / 1e9:.3f} GB before); "
+            f"launches {launches}; {seconds:.1f} s")
+        if name == "full4d_streamed":
+            captured.pop("optimizer")
+            st = summary["stream"]
+            if len(st["host_synth_s"]) != 1 or "dataset" in captured:
+                fail(f"full4d_streamed: stream record {st}, resident dataset {captured.get('dataset')}")
+            log(f"[full4d_streamed] epoch {st['epoch_s'][0]:.3f} s: host synthesis {st['host_synth_s'][0]:.3f} s "
+                f"(worker thread), host-to-device {st['h2d_s'][0]:.4f} s (copy events), the loop waited "
+                f"{st['shard_wait_s'][0]:.3f} s for shards")
+            continue
+        # the resident fit's real bytes against the plan's
+        opt = captured.pop("optimizer")
+        params = [p for group in opt.param_groups for p in group["params"]]
+        rows = HashGridEncoding(dim=4, **FULL4D).total_size
+        table = [p for p in params if tuple(p.shape) == (rows, FULL4D["n_features_per_level"])]
+        table_bytes = sum(p.numel() * p.element_size() for p in table)
+        decoder_bytes = sum(p.numel() * p.element_size() for p in params) - table_bytes
+        moment_bytes = sum(st[k].numel() * st[k].element_size() for st in opt.state.values()
+                           for k in ("exp_avg", "exp_avg_sq"))
+        real = {"table": table_bytes, "decoder_params": decoder_bytes, "optimizer_state": moment_bytes,
+                "dataset": captured.pop("dataset")}
+        del opt, params, table
+        got = {k: plan["bytes"][k] for k in real}
+        if got != real:
+            fail(f"full4d --plan: the plan's bytes {got} differ from the resident fit's {real}")
+        out["real_bytes"] = real
+        log(f"[full4d --plan] table, decoder, Adam moments and dataset bytes equal the resident fit's: {real}")
+    step_total = plan["bytes"]["step_total"]
+    for name, out in runs.items():
+        log(f"[full4d --plan] step total {step_total / 1e9:.3f} GB (with the dataset {plan['bytes']['total'] / 1e9:.3f} "
+            f"GB) beside {name}'s peak {out['peak_allocated_bytes'] / 1e9:.3f} GB")
+    roof = step_roofline(dim_in=4, batch_size=50_000, decoder="relu_plain", optimizer="adam_tcnn",
+                         **{k: v for k, v in FULL4D.items()},
+                         measured_steps_per_sec=runs["full4d_resident"]["steps_per_s"])
+    log(f"[full4d roofline] {json.dumps(roof['floor_s'])}; measured {json.dumps(roof['measured'])}")
+    paths.update(runs)
+    paths["full4d_resident"]["roofline"] = roof
+    return plan
+
+
+def drive_tooling(torch, path: str, tmp: str, zero: dict, paths: dict) -> None:
+    """The tooling around the launcher, each with the counters at 0 just
+    before it and read just after: a ``--config_yaml`` run, a 2-D launcher
+    run that writes ``pred.png`` (decoded here, equal to viridis of
+    ``pred.T``), ``make_figures`` on protocol_tv's run directory, the sweep
+    CLI (2 ``recon`` trials and 2 ``odd_frames`` trials with ``--ens_seeds
+    2``, then both again from their logs, launching nothing), and a SIREN
+    preset fit of a synthetic MNIST digit (kernels 5-6)."""
+    from mri_interpolation_tpu_torch import figures, launcher
+    from mri_interpolation_tpu_torch.configs import parse_config_txt
+    from mri_interpolation_tpu_torch.encodings import HashGridEncoding
+    from mri_interpolation_tpu_torch.infer import evaluate_grid
+    from mri_interpolation_tpu_torch.io import mnist, nifti, png
+    from mri_interpolation_tpu_torch.metrics import evaluate_reconstruction
+    from mri_interpolation_tpu_torch.models import make_siren
+    from mri_interpolation_tpu_torch.train import TrainConfig, Trainer, sweep
+
+    n = int(np.prod(VOLUME))
+    yml = os.path.join(tmp, "run.yaml")
+    with open(yml, "w") as f:
+        f.write("# a run config: the flat section, then the reference schema's optimizer\nrun:\n  epochs: 1\n"
+                "  batch_size: 20000\n  n_levels: 3\n  n_features_per_level: 2\n  interp_shapes: []\n"
+                "  save_checkpoint: false\noptimizer:\n  _target_: FakeOptimizer\n  lr: 1.0e-2\n")
+    summary, seconds, launches = counted(lambda: cli(launcher, [
+        "--config_yaml", yml, "--image_path", path, "--output_root", os.path.join(tmp, "yaml")]))
+    cfg = parse_config_txt(os.path.join(summary["run_dir"], "config.txt"))
+    steps = n // 20_000
+    want = {**zero, "hash_encode_forward": steps, "hash_encode_table_grad": steps, "probe": 1}
+    if (summary["steps"], cfg["n_levels"], cfg["lr"], cfg["interp_shapes"], launches) != (steps, "3", "0.01", "()",
+                                                                                          want):
+        fail(f"config_yaml: {summary['steps']} steps, config {cfg}, launches {launches}")
+    paths["config_yaml"] = {"launches": launches, "wall_s": seconds, "psnr": summary["psnr"]}
+    log(f"[config_yaml] launcher.main --config_yaml: {steps} steps, n_levels {cfg['n_levels']}, lr {cfg['lr']}, "
+        f"PSNR {summary['psnr']:.3f} dB; launches {launches}; {seconds:.1f} s")
+
+    frame_path = os.path.join(tmp, "frame_352x352.nii.gz")
+    nifti.save(nifti.load(path).get_fdata(np.float32)[..., 0], frame_path)
+    summary, seconds, launches = counted(lambda: cli(launcher, [
+        "--image_path", frame_path, "--epochs", "1", "--interp_shapes", "()", "--output_root",
+        os.path.join(tmp, "frame")]))
+    steps = FRAME[0] * FRAME[1] // 10_000
+    want = {**zero, "hash_encode_forward": steps, "hash_encode_table_grad": steps, "probe": 1}
+    recon = nifti.load(os.path.join(summary["run_dir"], "pred.nii.gz")).get_fdata(np.float32)
+    image = read_png(os.path.join(summary["run_dir"], "pred.png"))
+    if launches != want or recon.shape != FRAME or not np.array_equal(image, png.colorize(recon.T)):
+        fail(f"pred_png: launches {launches}, reconstruction {recon.shape}, pred.png {image.shape} equal to viridis of "
+             f"pred.T: {image.shape == FRAME + (3,) and np.array_equal(image, png.colorize(recon.T))}")
+    paths["pred_png"] = {"launches": launches, "wall_s": seconds, "psnr": summary["psnr"]}
+    log(f"[pred_png] 2-D launcher run: {steps} steps, PSNR {summary['psnr']:.3f} dB, pred.png {image.shape} = "
+        f"viridis of pred.T; launches {launches}; {seconds:.1f} s")
+
+    run_dir = paths["protocol_tv"]["run_dir"]
+    arts, seconds, launches = counted(lambda: figures.make_figures(run_dir))
+    grid, lat, conv = (read_png(arts[k]) for k in ("grid", "latents", "convergence"))
+    tiles = 3 * 352 + 4 * 4, 5 * 352 + 6 * 4
+    if (launches != zero or grid.shape != tiles or lat.shape != (2 * 352 + 12, 8 * 352 + 36, 3)
+            or conv.shape != (420, 720, 3) or open(arts["gif"], "rb").read(6) != b"GIF89a"):
+        fail(f"figures: launches {launches}, grid {grid.shape}, latents {lat.shape}, convergence {conv.shape}")
+    paths["figures"] = {"launches": launches, "wall_s": seconds,
+                        "bytes": {k: os.path.getsize(v) for k, v in arts.items()}}
+    log(f"[figures] make_figures on protocol_tv's run: {paths['figures']['bytes']}; {seconds:.1f} s")
+
+    logs = {"recon": os.path.join(tmp, "sweep_recon.jsonl"), "odd_frames": os.path.join(tmp, "sweep_odd.jsonl")}
+    argvs = {"recon": ["--image_path", path, "--trials", "2", "--epochs", "1", "--log_path", logs["recon"]],
+             "odd_frames": ["--image_path", path, "--model_class", "warp_inr", "--objective", "odd_frames",
+                            "--ens_seeds", "2", "--trials", "2", "--epochs", "1", "--log_path", logs["odd_frames"]]}
+    even = n // VOLUME[-1] * ((VOLUME[-1] + 1) // 2) // 10_000  # 99 warp steps a seed
+    recon_chunks = -(-n // (1 << 17))
+    for objective, argv in argvs.items():
+        with contextlib.redirect_stdout(io.StringIO()):
+            result, seconds, launches = counted(lambda: sweep.main(argv))
+        scores = [t["score"] for t in result.trials]
+        if objective == "recon":  # each trial: one epoch; the grid on kernel 1 unless every level is dense
+            fwd = 0
+            for t in result.trials:
+                p = t["params"]
+                enc = HashGridEncoding(dim=3, n_levels=p["n_levels"], n_features_per_level=p["n_features_per_level"],
+                                       log2_hashmap_size=23, base_resolution=16, finest_resolution=max(VOLUME))
+                fwd += n // 10_000 + (0 if enc.level_dense.all() else recon_chunks)
+            want = {**zero, "hash_encode_forward": fwd, "hash_encode_table_grad": 2 * (n // 10_000)}
+        else:  # 2 trials x 2 seeds: the even frames' steps and the reconstruction's chunks, kernel 1 per chunk
+            want = {**zero, "hash_encode_forward": 4 * (even + recon_chunks), "hash_encode_table_grad": 4 * even}
+        if len(scores) != 2 or not all(s is not None and math.isfinite(s) for s in scores) or launches != want:
+            fail(f"sweep {objective}: trials {result.trials}, launches {launches} (expected {want})")
+        with contextlib.redirect_stdout(io.StringIO()):
+            again, rerun_s, rerun = counted(lambda: sweep.main(argv))
+        if rerun != zero or again.trials != result.trials:
+            fail(f"sweep {objective} rerun: launches {rerun}, trials {again.trials}")
+        paths[f"sweep_{objective}"] = {"launches": launches, "wall_s": seconds, "trials": result.trials,
+                                       "rerun_s": rerun_s, "rerun_launches": rerun}
+        log(f"[sweep {objective}] 2 trials in {seconds:.1f} s: {[(t['params'], round(t['score'], 3)) for t in result.trials]}"
+            f"; launches {launches}; the rerun from the log {rerun_s:.2f} s, launches {rerun}")
+
+    coords, values = mnist.mnist_digit_dataset((2,), mode="single")
+    model = make_siren(2, dim_hidden=128, n_layers=6)  # the SIREN preset's widths, lr and batch (one step an epoch)
+    res, seconds, launches = counted(lambda: Trainer(TrainConfig(batch_size=4096, epochs=200, lr=1e-4)).fit(
+        model, coords, values))
+    recon, grid_s, grid_launches = counted(lambda: evaluate_grid(model, (28, 28), lo=-1.0))
+    q = evaluate_reconstruction(recon, values.reshape(28, 28), data_range=2.0)
+    launches = {k: launches[k] + grid_launches[k] for k in launches}
+    want = {**zero, "fused_mlp_forward": 201, "fused_mlp_backward": 200}
+    if res.steps != 200 or launches != want or not math.isfinite(q["psnr"]) or recon.shape != (28, 28):
+        fail(f"mnist_siren: {res.steps} steps, launches {launches} (expected {want}), PSNR {q['psnr']}")
+    paths["mnist_siren"] = {"launches": launches, "wall_s": seconds + grid_s, "psnr": q["psnr"],
+                            "first_loss": float(res.losses[0]), "final_loss": res.final_loss}
+    log(f"[mnist_siren] SIREN 2 -> 128 x 6 -> 1 on a synthetic 28x28 digit: 200 steps in {res.wall_time_s:.3f} s, "
+        f"loss {res.losses[0]:.5f} -> {res.final_loss:.5f}, PSNR {q['psnr']:.3f} dB; launches {launches}")
 
 
 def check_grid_routes(paths: dict) -> dict:
@@ -2036,6 +2411,8 @@ def profile_main_paths(torch) -> None:
                                  **{k: v for k, v in HASH_SIREN.items() if k not in ("dim", "finest_resolution")})
     psf = make_psf_siren(3, dim_hidden=256, n_layers=5, coordinates_spacing=[0.5 / (s - 1) for s in VOLUME])
     warp = make_warp_inr(3, **WARP)
+    full4d = make_hash_mlp(4, decoder="relu_plain", **FULL4D)
+    ds4 = dataset_from_array(synthetic_volume(FULL4D_VOLUME, seed=0))
     warp_coords, warp_values = even_frame_training_set(img)
     warp_ds = types.SimpleNamespace(coords=warp_coords, values=warp_values)
     frame = normalize_intensity(synthetic_volume(REG_FRAME, seed=5))
@@ -2054,6 +2431,8 @@ def profile_main_paths(torch) -> None:
         ("psf_siren train_step", fit(psf, zc, TrainConfig(batch_size=4096, lr=1e-4), 20 * 4096), 20),
         ("warp_protocol train_step", fit(warp, warp_ds, TrainConfig(
             lr=1e-2, optimizer="adam_tcnn", weight_decay=1e-5, lr_schedule="cosine", cosine_t_max=1), 200_000), 20),
+        ("full4d train_step (batch 50,000)", fit(full4d, ds4, TrainConfig(
+            batch_size=50_000, lr=1e-2, optimizer="adam_tcnn", lr_schedule="cosine", cosine_t_max=30), 20 * 50_000), 20),
         ("flagship grid_eval_352x352x30 (separable)", lambda: evaluate_grid(flagship, GRID), 1),
         ("protocol_tv grid_eval_352x352x30 (separable)", lambda: evaluate_grid(protocol, GRID), 1),
         ("hash_siren grid_eval_352x352x30", lambda: evaluate_grid(hash_siren, GRID, lo=-1.0), 1),
@@ -2146,6 +2525,8 @@ def main() -> int:
         rows[name].extend(krows)
     for name, krows in check_slice_hash_kernels(torch, he, dev).items():
         rows[name].extend(krows)
+    for name, krows in check_full4d_hash_kernels(torch, he, dev).items():
+        rows[name].extend(krows)
     warp_rows, coord_grad_rows = check_warp_hash_kernels(torch, he, dev)
     for name, krows in warp_rows.items():
         rows[name].extend(krows)
@@ -2161,6 +2542,7 @@ def main() -> int:
     rels.update(small_option_fits(torch))
     rels.update(small_fit_frames_match_cpu(torch))
     rels.update(small_zoo_fits(torch))
+    rels.update({f"fit_streaming {k}": v for k, v in check_streaming_card_vs_cpu(torch).items()})
     log(f"[small fit] 10 steps each, card vs CPU loss curves, max rel diff (rtol {FIT_RTOL}): "
         + ", ".join(f"{k} {v:.3e}" for k, v in rels.items()) + f" in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
@@ -2196,6 +2578,12 @@ def main() -> int:
         drive_slice_nine_paths(path, img, tmp, zero, paths)
         drive_slice_ten_paths(path, img, tmp, zero, paths)
         check_grid_routes(paths)
+        t0 = time.perf_counter()
+        drive_full4d(torch, tmp, zero, paths)
+        log(f"[full4d] done in {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        drive_tooling(torch, path, tmp, zero, paths)
+        log(f"[tooling] done in {time.perf_counter() - t0:.1f} s")
 
     # the kernel bench: each timed call runs once to check, 3 times to warm up, ITERS times timed
     calls = 1 + 3 + bench_kernels.ITERS

@@ -7,9 +7,10 @@
   tolerates ``//`` comments, and ``apply_enco_config``);
 - the CLI flags: one per scalar field plus the tuple-valued ones
   (``add_config_flags``, ``override_from_args``, ``parse_tuple_flag``);
-- the ``config.txt`` provenance dump.
-
-YAML configs (``load_yaml_config``) are not ported (ROADMAP.md, queue 1).
+- the hydra-style YAML run config (``load_yaml_config``) through
+  ``parse_yaml``, a reader of the YAML subset the schema uses (PyYAML is not
+  a dependency of the port);
+- the ``config.txt`` provenance dump and its reader (``parse_config_txt``).
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import re
 from dataclasses import dataclass, fields
 from typing import Any, Dict, Optional, Tuple, Union
 
@@ -25,11 +27,14 @@ __all__ = [
     "default_hash_config",
     "default_siren_config",
     "load_json_config",
+    "load_yaml_config",
+    "parse_yaml",
     "apply_enco_config",
     "parse_tuple_flag",
     "add_config_flags",
     "override_from_args",
     "export_to_txt",
+    "parse_config_txt",
 ]
 
 
@@ -55,7 +60,7 @@ class RunConfig:
     cosine_t_max: int = 10
     data_parallel: bool = False          # not ported yet (ROADMAP.md)
     shard_tables: bool = False           # not ported yet (ROADMAP.md)
-    stream_shard_voxels: int = 0         # not ported yet (ROADMAP.md)
+    stream_shard_voxels: int = 0         # >0: out-of-core fit, this many voxels on the device at a time
 
     # --- model
     model_class: str = "hash_mlp"
@@ -99,7 +104,7 @@ class RunConfig:
     checkpoint_every_epochs: int = 0     # >0: also checkpoint every k epochs
     eval_every_epochs: int = 0           # >0: eval PSNR into scalars.jsonl every k epochs
     save_latents: bool = False           # write the encoder features (latents.nii.gz) of a split model
-    tb_events: bool = False              # not ported yet (ROADMAP.md)
+    tb_events: bool = False              # also export scalars.jsonl as a TensorBoard event file under tb/
     remat: bool = False                  # recompute the forward in the backward (memory for FLOPs)
 
     def model_kwargs(self) -> dict:
@@ -213,6 +218,253 @@ def apply_enco_config(cfg: RunConfig, enco: Dict[str, Any]) -> RunConfig:
 
 
 # ---------------------------------------------------------------------------
+# YAML config: a reader of the subset the run-config schema uses
+
+_YAML_KEY = re.compile(r"^([A-Za-z_][A-Za-z0-9_.-]*):(?:\s+(.*))?$")
+_YAML_INT = re.compile(r"^[-+]?(0|[1-9][0-9]*)$")
+_YAML_FLOAT = re.compile(r"^[-+]?([0-9]+\.[0-9]*|\.[0-9]+|[0-9]+)([eE][-+]?[0-9]+)?$")
+_YAML_BOOL = {"true": True, "True": True, "TRUE": True, "false": False, "False": False, "FALSE": False}
+_YAML_NULL = ("null", "Null", "NULL", "~")
+# plain scalars that YAML 1.1 (PyYAML) and YAML 1.2 read differently, or that the subset leaves out
+_YAML_11_BOOL = r"[yY]|[nN]|yes|Yes|YES|no|No|NO|on|On|ON|off|Off|OFF"
+_YAML_AMBIGUOUS = re.compile(rf"^({_YAML_11_BOOL}|[-+]?\.(inf|Inf|INF|nan|NaN|NAN)|[-+]?0[0-9_]+|[-+]?0[xXoObB].*"
+                             r"|[-+]?[0-9][0-9_]*_[0-9_]*(\.[0-9_]*)?([eE][-+]?[0-9]+)?"
+                             r"|[-+]?[0-9][0-9_]*(:[0-5]?[0-9])+(\.[0-9_]*)?)$")
+_YAML_AMBIGUOUS_KEY = re.compile(rf"^({_YAML_11_BOOL})$")
+_YAML_INDICATORS = "&*!|>%@`{}[],?'\"#-:"
+
+
+class YamlSubsetError(ValueError):
+    """YAML outside the subset that ``parse_yaml`` reads."""
+
+
+def _yaml_error(lineno: int, msg: str) -> YamlSubsetError:
+    return YamlSubsetError(f"line {lineno}: {msg} (the reader takes nested mappings, scalars and flow lists)")
+
+
+def _strip_yaml_comment(text: str) -> str:
+    """Cut a `` #`` comment outside quotes."""
+    quote = None
+    for i, c in enumerate(text):
+        if quote:
+            if c == quote:
+                quote = None
+        elif c in "\"'":
+            quote = c
+        elif c == "#" and (i == 0 or text[i - 1] in " \t"):
+            return text[:i].rstrip()
+    return text.rstrip()
+
+
+def _yaml_quoted(text: str, lineno: int):
+    """(the string, the rest) of a quoted scalar at the start of ``text``."""
+    q = text[0]
+    out, i = [], 1
+    escapes = {"\\": "\\", '"': '"', "n": "\n", "t": "\t", "/": "/", "0": "\0"}
+    while i < len(text):
+        c = text[i]
+        if q == "'" and c == "'":
+            if text[i + 1:i + 2] == "'":
+                out.append("'")
+                i += 2
+                continue
+            return "".join(out), text[i + 1:]
+        if q == '"' and c == '"':
+            return "".join(out), text[i + 1:]
+        if q == '"' and c == "\\":
+            esc = text[i + 1:i + 2]
+            if esc not in escapes:
+                raise _yaml_error(lineno, f"escape \\{esc} in a double-quoted string")
+            out.append(escapes[esc])
+            i += 2
+            continue
+        out.append(c)
+        i += 1
+    raise _yaml_error(lineno, "a quoted string that does not end on its line")
+
+
+def _yaml_plain(text: str, lineno: int):
+    """The value of a plain (unquoted) scalar."""
+    if not text:
+        return None
+    if text[0] in _YAML_INDICATORS and not (text[0] in "-:?" and len(text) > 1 and text[1] not in " ,[]{}"):
+        raise _yaml_error(lineno, f"{text!r} starts with an indicator the subset leaves out")
+    if ": " in text or text.endswith(":") or " #" in text or "\t" in text:
+        raise _yaml_error(lineno, f"{text!r} is not a plain scalar")
+    if _YAML_AMBIGUOUS.match(text):
+        raise _yaml_error(lineno, f"{text!r} reads differently in YAML 1.1 and 1.2; quote it or write it out")
+    if text in _YAML_BOOL:
+        return _YAML_BOOL[text]
+    if text in _YAML_NULL:
+        return None
+    if _YAML_INT.match(text):
+        return int(text)
+    if _YAML_FLOAT.match(text):
+        return float(text)
+    return text
+
+
+def _yaml_flow(text: str, lineno: int):
+    """(the list, the rest) of a flow sequence at the start of ``text``."""
+    items, rest = [], text[1:].lstrip()
+    if rest.startswith("]"):
+        return items, rest[1:]
+    while True:
+        if rest.startswith("["):
+            item, rest = _yaml_flow(rest, lineno)
+        elif rest[:1] in ("'", '"'):
+            item, rest = _yaml_quoted(rest, lineno)
+        else:
+            m = re.match(r"[^,\[\]{}]*", rest)
+            token = m.group(0).strip()
+            if not token:
+                raise _yaml_error(lineno, "an empty item in a flow list")
+            item, rest = _yaml_plain(token, lineno), rest[m.end():]
+        items.append(item)
+        rest = rest.lstrip()
+        if rest.startswith(","):
+            rest = rest[1:].lstrip()
+            if rest.startswith("]"):
+                raise _yaml_error(lineno, "a trailing comma in a flow list")
+            continue
+        if rest.startswith("]"):
+            return items, rest[1:]
+        raise _yaml_error(lineno, f"a flow list that does not close: {text!r}")
+
+
+def _yaml_value(text: str, lineno: int):
+    if text.startswith("["):
+        value, rest = _yaml_flow(text, lineno)
+    elif text[:1] in ("'", '"'):
+        value, rest = _yaml_quoted(text, lineno)
+    else:
+        return _yaml_plain(text, lineno)
+    if rest.strip():
+        raise _yaml_error(lineno, f"text after a value: {rest.strip()!r}")
+    return value
+
+
+def parse_yaml(text: str):
+    """Read the YAML subset of the run-config schema: nested mappings by
+    indentation (spaces), plain keys; scalars: ints, floats (``0.5``,
+    ``1e-3``, ``1.0e-5``), ``true``/``false``, ``null``/``~``/empty,
+    single- and double-quoted strings, plain strings; flow lists ``[8, 8,
+    2]``, nested ones ``[[16, 16, 8]]``; ``#`` comments. Returns what
+    ``yaml.safe_load`` returns for such a document (``None`` for an empty
+    one), except that ``1e-3`` is the float of YAML 1.2's core schema
+    (PyYAML, on YAML 1.1, reads a float without a dot as a string).
+
+    Raises ``YamlSubsetError`` on anything else, never misreading it:
+    anchors and aliases, tags, block sequences (``- item``), block scalars
+    (``|``, ``>``), flow mappings, multi-line values, documents markers,
+    duplicate keys, tabs in indentation, and the plain scalars (and keys)
+    that YAML 1.1 and 1.2 read differently (``yes``/``no``/``on``/``off``, octal,
+    hexadecimal, ``1_000``, sexagesimal, ``.inf``/``.nan``)."""
+    root: dict = {}
+    stack: list = []  # (indentation, mapping), the root first
+    pending = None  # (indentation, mapping, key) of a key whose value may be the block below it
+    for lineno, raw in enumerate(text.splitlines(), 1):
+        line = _strip_yaml_comment(raw)
+        if not line.strip():
+            continue
+        body = line.lstrip(" ")
+        indent = len(line) - len(body)
+        if body.startswith("\t"):
+            raise _yaml_error(lineno, "a tab in the indentation")
+        if body in ("---", "...") or body.startswith("--- ") or body.startswith("%"):
+            raise _yaml_error(lineno, "document markers and directives")
+        if body.startswith("- ") or body == "-":
+            raise _yaml_error(lineno, "a block sequence; write a flow list [a, b]")
+        m = _YAML_KEY.match(body)
+        if not m:
+            raise _yaml_error(lineno, f"not a 'key: value' line: {body!r}")
+        key, value = m.group(1), (m.group(2) or "").strip()
+        if key in _YAML_BOOL or key in _YAML_NULL or _YAML_AMBIGUOUS_KEY.match(key):
+            raise _yaml_error(lineno, f"the key {key!r} is not a plain string in every YAML version")
+        if not stack:
+            stack.append((indent, root))
+        if pending is not None and indent > pending[0]:
+            child: dict = {}
+            pending[1][pending[2]] = child
+            stack.append((indent, child))
+        pending = None
+        while stack and indent < stack[-1][0]:
+            stack.pop()
+        if not stack or indent != stack[-1][0]:
+            raise _yaml_error(lineno, f"indentation {indent} matches no enclosing mapping")
+        mapping = stack[-1][1]
+        if key in mapping:
+            raise _yaml_error(lineno, f"duplicate key {key!r}")
+        mapping[key] = _yaml_value(value, lineno) if value else None
+        if not value:
+            pending = (indent, mapping, key)
+    return root if stack else None
+
+
+def load_yaml_config(path: str, base: Optional[RunConfig] = None) -> RunConfig:
+    """Load a hydra-style YAML run config into a RunConfig (JAX
+    ``configs.load_yaml_config``, read by :func:`parse_yaml`).
+
+    Understands the reference ``config/base.yaml`` schema (sections
+    ``training`` / ``siren`` (model) / ``encoding`` / ``datamodule`` /
+    ``optimizer``) plus a flat ``run:`` section whose keys are RunConfig
+    field names verbatim. Unknown keys are ignored."""
+    with open(path) as f:
+        doc = parse_yaml(f.read()) or {}
+    cfg = dataclasses.replace(base if base is not None else RunConfig())
+    known = {f.name for f in fields(cfg)}
+
+    def put(name: str, value: Any) -> None:
+        if name in known and value is not None:
+            if isinstance(value, list):
+                value = tuple(tuple(v) if isinstance(v, list) else v for v in value)
+            setattr(cfg, name, value)
+
+    for k, v in (doc.get("run") or {}).items():
+        put(k, v)
+    for k, v in (doc.get("training") or {}).items():
+        put(k, v)
+    # the model section: the reference names it after the model family ("siren:"); "model:" too
+    model = doc.get("model") or doc.get("siren") or {}
+    if model:
+        cls = model.get("cls") or model.get("_target_")
+        if cls:
+            cfg.model_class = _MODEL_CLASS_ALIASES.get(cls, str(cls))
+        for k, v in model.items():
+            put({"w0initial": "w0_initial"}.get(k, k), v)
+    enc = doc.get("encoding") or {}
+    if enc:
+        cfg = apply_enco_config(cfg, {"encoding": enc})
+    dm = doc.get("datamodule") or {}
+    if dm:
+        put("image_path", dm.get("mri_path"))
+        put("output_root", dm.get("output_path"))
+        if isinstance(dm.get("batch_size"), int) and dm["batch_size"] > 1:
+            cfg.batch_size = dm["batch_size"]
+    opt = doc.get("optimizer") or {}
+    if opt and opt.get("_target_") not in (None, "FakeOptimizer"):
+        put("optimizer", str(opt["_target_"]).lower())
+    if opt:
+        lr = opt.get("lr")  # an explicit lr: 0 is honoured
+        if lr is None:
+            lr = opt.get("learning_rate")
+        put("lr", lr)
+    return cfg
+
+
+# the reference's class names -> registry names
+_MODEL_CLASS_ALIASES = {
+    "SirenNet": "siren",
+    "HashMLP": "hash_mlp",
+    "ModulatedSirenNet": "modulated_siren",
+    "GaborNet": "gabor",
+    "RffNet": "rff_net",
+    "PsfSirenNet": "psf_siren",
+    "TcnnHashMLP": "hash_mlp",
+}
+
+
+# ---------------------------------------------------------------------------
 # CLI flags
 
 # Fields with tuple (or int-or-tuple) values, settable from the CLI as
@@ -283,3 +535,14 @@ def export_to_txt(cfg: RunConfig, file_path: str = "") -> None:
     with open(file_path + "config.txt", "w") as f:
         for fld in fields(cfg):
             f.write(f"{fld.name} : {getattr(cfg, fld.name)}\n")
+
+
+def parse_config_txt(path: str) -> Dict[str, str]:
+    """A ``config.txt`` back as {name: value text}."""
+    out = {}
+    with open(path) as f:
+        for line in f:
+            if " : " in line:
+                k, v = line.split(" : ", 1)
+                out[k.strip()] = v.strip()
+    return out

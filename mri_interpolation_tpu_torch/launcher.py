@@ -13,24 +13,38 @@ resume it from ``checkpoint_path``: parameters and buffers, with a fresh
 optimizer and schedule. Fit it with ``Trainer.fit`` (per-step losses into
 ``scalars.jsonl``; every ``eval_every_epochs`` epochs the PSNR of a strided
 subsample of at most ~100k training voxels; every
-``checkpoint_every_epochs`` epochs a checkpoint with the optimizer state).
-Reconstruct the volume on its own grid (``pred.nii.gz``; with
-``save_latents`` and an encode/decode split, the encoder's features too,
-``latents.nii.gz``), score PSNR/SSIM against the whole volume (with
-``even_frames_only`` also ``odd_*`` against the held-out odd frames),
-evaluate each ``interp_shapes`` grid (``interpolation{shape}.nii.gz``,
-rank-adapted to the volume), and write ``config.txt``, ``metrics.json`` and
-the final checkpoint (``train/checkpoint.py``) into a versioned run
-directory. Before a run it checks the kernels' build with the probe kernel
+``checkpoint_every_epochs`` epochs a checkpoint with the optimizer state),
+or with ``stream_shard_voxels`` > 0 out of core with
+``Trainer.fit_streaming`` (that many voxels on the device at a time; the
+whole grid, so not with ``even_frames_only``, ``undersample_pct`` or
+``shard_tables``). Reconstruct the volume on its own grid (``pred.nii.gz``,
+and ``pred.png`` for a 2-D volume; with ``save_latents`` and an
+encode/decode split, the encoder's features too, ``latents.nii.gz``), score
+PSNR/SSIM against the whole volume (with ``even_frames_only`` also
+``odd_*`` against the held-out odd frames), evaluate each ``interp_shapes``
+grid (``interpolation{shape}.nii.gz``, rank-adapted to the volume), with
+``tb_events`` export ``scalars.jsonl`` as a TensorBoard event file under
+``tb/``, and write ``config.txt``, ``metrics.json`` and the final
+checkpoint (``train/checkpoint.py``) into a versioned run directory. Before
+a run it checks the kernels' build with the probe kernel
 (``ops.probe.check_build``). Everything runs on ``cuda`` unless
-``device="cpu"`` (``--device cpu``) is passed.
+``device="cpu"`` (``--device cpu``) is passed. ``--plan`` prints the
+capacity plan (``plan.py``) for the configuration and runs nothing.
+
+``pred.png`` differs from the JAX package's matplotlib figure: the pixels
+of ``recon.T`` (row 0 at the top, as ``imshow`` draws it) min-max onto
+matplotlib's viridis table (``io/png.py``), with no axes or margins.
 
 Usage:
     python -m mri_interpolation_tpu_torch.launcher --image_path vol.nii.gz \
-        [--config_preset siren] [--enco_config_path cfg.json] [--epochs 10] ...
+        [--config_preset siren] [--config_yaml run.yaml] [--enco_config_path cfg.json] [--epochs 10] ...
     # resume from a run's checkpoints (its latest step)
     python -m mri_interpolation_tpu_torch.launcher --image_path vol.nii.gz \
         --checkpoint_path runs/version_0/checkpoints ...
+    # out of core, 4,194,304 voxels on the device at a time
+    python -m mri_interpolation_tpu_torch.launcher --image_path vol.nii.gz --stream_shard_voxels 4194304 ...
+    # the capacity plan alone, for 4 cards of 80 GB
+    python -m mri_interpolation_tpu_torch.launcher --image_path vol.nii.gz --plan --plan_devices 4 ...
 """
 
 from __future__ import annotations
@@ -51,7 +65,7 @@ from .configs import RunConfig
 from .device import DeviceLike, resolve_device
 from .utils.imaging import create_rn_mask
 
-__all__ = ["build_parser", "run", "main", "make_run_dir", "build_model"]
+__all__ = ["build_parser", "run", "main", "make_run_dir", "build_model", "plan_from_config"]
 
 _HASH_MODELS = ("hash_mlp", "HashMLP", "hash_siren", "HashSirenNet", "TcnnHashMLP")
 
@@ -61,11 +75,15 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--enco_config_path", type=str, default=None,
                         help="path to a tcnn-style JSON encoding config")
     parser.add_argument("--config_yaml", type=str, default=None,
-                        help="YAML run configs are not ported yet (ROADMAP.md, queue 1)")
+                        help="path to a hydra-style YAML run config (configs.load_yaml_config)")
     parser.add_argument("--config_preset", type=str, default="hash", choices=["hash", "siren"],
                         help="base config preset")
     parser.add_argument("--plan", action="store_true",
-                        help="the capacity plan is not ported yet (ROADMAP.md, queue 1)")
+                        help="don't run: print the capacity plan (per-level table bytes, step residency, "
+                             "sharding layout, scaling-path recommendations) for this config")
+    parser.add_argument("--plan_devices", type=int, default=1, help="device count the --plan sharding assumes")
+    parser.add_argument("--plan_hbm_gb", type=float, default=80.0,
+                        help="per-card memory budget --plan checks against (H100: 80)")
     parser.add_argument("--device", type=str, default=None,
                         help="device to run on: cuda (the default) or cpu")
     configs.add_config_flags(parser, RunConfig())
@@ -97,11 +115,15 @@ def build_model(cfg: RunConfig, dim_in: int, device: torch.device, coordinates_s
 
 
 def _check_ported(cfg: RunConfig) -> None:
-    for name in ("shard_tables", "data_parallel", "tb_events"):
+    if cfg.stream_shard_voxels > 0:
+        if cfg.shard_tables:
+            raise ValueError("--stream_shard_voxels does not compose with --shard_tables")
+        if cfg.even_frames_only or cfg.undersample_pct > 0:
+            raise ValueError("--stream_shard_voxels streams the FULL volume grid; it does not compose with "
+                             "--even_frames_only / --undersample_pct")
+    for name in ("shard_tables", "data_parallel"):
         if getattr(cfg, name):
             raise NotImplementedError(f"{name} is not ported yet: ROADMAP.md, queue 1")
-    if cfg.stream_shard_voxels > 0:
-        raise NotImplementedError("stream_shard_voxels is not ported yet: ROADMAP.md, queue 1")
 
 
 def _make_eval_fn(coords: np.ndarray, values: np.ndarray, zero_centered: bool, device: torch.device):
@@ -125,7 +147,7 @@ def _make_eval_fn(coords: np.ndarray, values: np.ndarray, zero_centered: bool, d
 def run(cfg: RunConfig, run_dir: Optional[str] = None, device: DeviceLike = None) -> dict:
     """Execute the pipeline; returns the summary also written to metrics.json."""
     from .infer import evaluate_grid, has_split
-    from .io import even_frame_split, even_frame_training_set, load_volume, nifti
+    from .io import even_frame_split, even_frame_training_set, load_volume, nifti, png
     from .metrics import evaluate_reconstruction
     from .ops.probe import check_build
     from .train import TrainConfig, Trainer, restore_checkpoint, save_checkpoint
@@ -185,7 +207,13 @@ def run(cfg: RunConfig, run_dir: Optional[str] = None, device: DeviceLike = None
     eval_fn = None
     if cfg.eval_every_epochs > 0:
         eval_fn = _make_eval_fn(train_coords, train_values, cfg.zero_centered, dev)
-    result = Trainer(tc).fit(model, train_coords, train_values, device=dev, eval_fn=eval_fn)
+    trainer = Trainer(tc)
+    if cfg.stream_shard_voxels > 0:  # out of core; the dataset's values are already normalised
+        result = trainer.fit_streaming(model, full_image, shard_voxels=cfg.stream_shard_voxels,
+                                       lo=-1.0 if cfg.zero_centered else 0.0, value_range=False, device=dev,
+                                       eval_fn=eval_fn)
+    else:
+        result = trainer.fit(model, train_coords, train_values, device=dev, eval_fn=eval_fn)
 
     # ----- reconstruction + quality
     lo = -1.0 if cfg.zero_centered else 0.0
@@ -199,6 +227,8 @@ def run(cfg: RunConfig, run_dir: Optional[str] = None, device: DeviceLike = None
     recon_s = time.perf_counter() - t0
     if latents is not None:
         nifti.save(latents.astype(np.float32), os.path.join(run_dir, "latents.nii.gz"), pixdim=ds.pixdim)
+    if recon.ndim == 2:
+        png.write_png(os.path.join(run_dir, "pred.png"), png.colorize(recon.T))
     nifti.save(recon.astype(np.float32), os.path.join(run_dir, "pred.nii.gz"), pixdim=ds.pixdim)
     quality = evaluate_reconstruction(recon, full_image, data_range=data_range, device=dev)
     if cfg.even_frames_only:  # the held-out odd frames
@@ -222,6 +252,10 @@ def run(cfg: RunConfig, run_dir: Optional[str] = None, device: DeviceLike = None
                    os.path.join(run_dir, f"interpolation{tuple(shape)}.nii.gz"), pixdim=ds.pixdim)
 
     # ----- provenance + metrics + checkpoint
+    if cfg.tb_events:  # a TensorBoard view of the scalars stream
+        from .train.tb_events import export_scalars_jsonl
+
+        export_scalars_jsonl(os.path.join(run_dir, "scalars.jsonl"), os.path.join(run_dir, "tb"))
     configs.export_to_txt(cfg, run_dir + os.sep)
     summary = {
         "model": model.name,
@@ -238,6 +272,9 @@ def run(cfg: RunConfig, run_dir: Optional[str] = None, device: DeviceLike = None
         "interp_eval_s": interp_s,
         **quality,
         **({"coordinates_spacing": list(spacing)} if "coordinates_spacing" in getattr(model, "hparams", {}) else {}),
+        **({"stream": {"shard_voxels": cfg.stream_shard_voxels, "host_synth_s": result.host_synth_s.tolist(),
+                       "h2d_s": result.h2d_s.tolist(), "shard_wait_s": result.shard_wait_s.tolist(),
+                       "epoch_s": result.epoch_times_s.tolist()}} if cfg.stream_shard_voxels > 0 else {}),
         "run_dir": run_dir,
     }
     with open(os.path.join(run_dir, "metrics.json"), "w") as f:
@@ -248,20 +285,53 @@ def run(cfg: RunConfig, run_dir: Optional[str] = None, device: DeviceLike = None
 
 
 def main(argv: Optional[Sequence[str]] = None) -> dict:
-    """CLI entry: preset -> JSON config -> flags -> :func:`run`; prints the
-    summary as JSON and returns it."""
+    """CLI entry: preset -> YAML config -> JSON config -> flags ->
+    :func:`run` (or, with ``--plan``, :func:`plan_from_config`, touching no
+    device); prints the summary or the plan as JSON and returns it."""
     args = build_parser().parse_args(argv)
-    if args.config_yaml:
-        raise NotImplementedError("--config_yaml is not ported yet: ROADMAP.md, queue 1")
-    if args.plan:
-        raise NotImplementedError("--plan is not ported yet: ROADMAP.md, queue 1")
     cfg = configs.default_siren_config() if args.config_preset == "siren" else configs.default_hash_config()
+    if args.config_yaml:
+        cfg = configs.load_yaml_config(args.config_yaml, base=cfg)
     if args.enco_config_path:
         cfg = configs.apply_enco_config(cfg, configs.load_json_config(args.enco_config_path))
     cfg = configs.override_from_args(cfg, args)
+    if args.plan:
+        plan = plan_from_config(cfg, n_devices=args.plan_devices, hbm_bytes=args.plan_hbm_gb * 1e9)
+        print(json.dumps(plan, indent=2))
+        return plan
     summary = run(cfg, device=args.device)
     print(json.dumps(summary, indent=2))
     return summary
+
+
+def plan_from_config(cfg: RunConfig, n_devices: int = 1, hbm_bytes: float = 80e9) -> dict:
+    """Capacity plan (``plan.plan_run``) for a launcher config: the volume's
+    shape from the NIfTI header alone, reduced as :func:`run` reduces it
+    (``slice_z``, the even frames, the undersampled share) and the
+    resolution tuples rank-adapted as there; no voxel is read and no device
+    touched."""
+    from .io import nifti
+    from .plan import plan_run
+
+    vol_shape = None
+    if cfg.image_path and os.path.exists(cfg.image_path):
+        vol_shape = nifti.peek_shape(cfg.image_path)
+    if vol_shape and cfg.slice_z is not None and len(vol_shape) == 4:
+        vol_shape = vol_shape[:2] + vol_shape[3:]
+    if vol_shape and cfg.even_frames_only:
+        vol_shape = vol_shape[:-1] + (-(-vol_shape[-1] // 2),)
+    dim_in = cfg.dim_in or (len(vol_shape) if vol_shape else 3)
+    base_res, finest_res = cfg.base_resolution, cfg.finest_resolution
+    if vol_shape and isinstance(base_res, (tuple, list)) and len(base_res) != dim_in:
+        finest_res = tuple(int(s) for s in vol_shape)
+        base_res = tuple(max(2, round(s / 5.5)) for s in vol_shape)
+    return plan_run(
+        dim_in=dim_in, n_levels=cfg.n_levels, n_features_per_level=cfg.n_features_per_level,
+        log2_hashmap_size=cfg.log2_hashmap_size, base_resolution=base_res, finest_resolution=finest_res,
+        per_level_scale=cfg.per_level_scale, growth=cfg.growth, dim_hidden=cfg.dim_hidden, n_layers=cfg.n_layers,
+        dim_out=cfg.dim_out, decoder=cfg.decoder, batch_size=cfg.batch_size, volume_shape=vol_shape,
+        row_fraction=cfg.undersample_pct / 100.0 if cfg.undersample_pct > 0 else 1.0,
+        n_devices=n_devices, optimizer=cfg.optimizer, remat=cfg.remat, hbm_bytes=hbm_bytes)
 
 
 if __name__ == "__main__":

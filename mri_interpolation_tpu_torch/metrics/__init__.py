@@ -16,7 +16,7 @@ import torch
 
 from ..device import DeviceLike, resolve_device
 
-__all__ = ["mse", "psnr", "ssim", "evaluate_reconstruction"]
+__all__ = ["mse", "psnr", "ssim", "evaluate_reconstruction", "param_count"]
 
 
 def mse(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
@@ -58,6 +58,18 @@ def ssim(pred: torch.Tensor, target: torch.Tensor, data_range: float = 1.0, win_
     c2 = (k2 * data_range) ** 2
     s = ((2 * ux * uy + c1) * (2 * vxy + c2)) / ((ux**2 + uy**2 + c1) * (vx + vy + c2))
     return s.mean()
+
+
+def param_count(params) -> int:
+    """Trainable parameter count: the elements of a module's parameters, or
+    of the tensors of a ``{name: tensor}`` mapping or a sequence of them."""
+    if isinstance(params, torch.nn.Module):
+        tensors = params.parameters()
+    elif isinstance(params, dict):
+        tensors = params.values()
+    else:
+        tensors = params
+    return sum(int(t.numel()) for t in tensors)
 
 
 def evaluate_reconstruction(pred: np.ndarray, target: np.ndarray, data_range: float = 1.0,

@@ -30,6 +30,20 @@ data in order; ``optimizer="adam_tcnn"`` is tcnn's Adam (b2 0.99, eps
 frames in order every epoch, the model called as ``model(x, frame_idx=t)``.
 As in the JAX package it takes the schedule, the accumulation and the freeze
 mask, and no loss hook, epoch hooks or remat.
+
+``fit_streaming`` is the out-of-core fit: only one shard of (coords,
+values) lies on the device at a time. Each epoch draws one global
+permutation of the flat voxel indices from a numpy ``default_rng(seed)``
+(the JAX package's draw, so both packages see the same batches), cuts it
+into equal shards (the tail padded from the permutation's head), and
+synthesises each shard's coordinates and values on the host
+(``make_host_shard_fn``, copied from the JAX package with
+``resolve_value_range`` and ``flatten_volume_source``). A worker thread
+synthesises the next shard into pinned memory while the steps of the
+current one are issued; its copy runs on a side stream, the steps wait on
+the copy's event, and the pinned buffer is held until that event has
+completed. The host-synthesis and host-to-device seconds of each epoch are
+in the result.
 """
 
 from __future__ import annotations
@@ -37,6 +51,7 @@ from __future__ import annotations
 import contextlib
 import math
 import time
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field
 from typing import Callable, Dict, Iterable, List, Optional
 
@@ -48,7 +63,8 @@ from ..device import DeviceLike, resolve_device
 from ..models.core import Model
 from .losses import get_loss
 
-__all__ = ["TrainConfig", "TrainResult", "Trainer", "EpochHooks", "make_optimizer", "make_schedule"]
+__all__ = ["TrainConfig", "TrainResult", "Trainer", "EpochHooks", "make_optimizer", "make_schedule",
+           "resolve_value_range", "make_host_shard_fn", "flatten_volume_source"]
 
 
 @dataclass
@@ -80,6 +96,11 @@ class TrainResult:
     steps: int
     epoch_times_s: np.ndarray = field(default_factory=lambda: np.array([]))
     hook_time_s: float = 0.0  # epoch hooks' seconds: in wall_time_s, not in epoch_times_s
+    # fit_streaming, per epoch: host synthesis seconds (worker thread), host-to-device copy seconds
+    # (the copies' CUDA events; host copy time on the CPU), and the seconds the loop waited for a shard
+    host_synth_s: np.ndarray = field(default_factory=lambda: np.array([]))
+    h2d_s: np.ndarray = field(default_factory=lambda: np.array([]))
+    shard_wait_s: np.ndarray = field(default_factory=lambda: np.array([]))
 
     @property
     def final_loss(self) -> float:
@@ -256,6 +277,152 @@ class EpochHooks:
             self.logger.close()
 
 
+def resolve_value_range(flat_values, n: int, chunk: int, value_range):
+    """(vmin, vscale) for streaming min-max normalization
+    (io.normalize_intensity semantics). ``None`` scans the source in chunks
+    (memmap-friendly); ``False`` disables; a (vmin, vmax) tuple is direct."""
+    if value_range is None:
+        vmin, vmax = np.inf, -np.inf
+        for start in range(0, n, chunk):
+            c = np.asarray(flat_values[start:start + chunk], np.float32)
+            vmin, vmax = min(vmin, float(c.min())), max(vmax, float(c.max()))
+    elif value_range is False:
+        vmin, vmax = 0.0, 1.0
+    else:
+        vmin, vmax = (float(v) for v in value_range)
+    return vmin, 1.0 / max(vmax - vmin, 1e-12)
+
+
+def make_host_shard_fn(shape, lo, hi, flat_values, vmin, vscale, order: str = "C"):
+    """Host-side (coords, values) synthesis for flat voxel indices (numpy;
+    the coordinates of ``infer.flat_index_to_coords`` / ``io.make_mgrid``).
+
+    ``order="F"``: ``flat_values`` is Fortran-ordered on disk (NIfTI's
+    layout, io.nifti.load_memmap); the C-order flat index's per-axis digits
+    are re-folded with Fortran strides for the value fetch, so the mapped
+    file is indexed as it is, with no reordering copy."""
+    shape = tuple(int(s) for s in shape)
+    strides = np.concatenate([np.cumprod(shape[::-1])[::-1][1:], [1]]).astype(np.int64)
+    fstrides = np.concatenate([[1], np.cumprod(shape[:-1])]).astype(np.int64)
+
+    def host_shard(idx: np.ndarray):
+        coords = np.empty((idx.size, len(shape)), np.float32)
+        vidx = idx if order == "C" else np.zeros_like(idx)
+        for k in range(len(shape)):
+            digit = (idx // strides[k]) % shape[k]
+            coords[:, k] = lo + (hi - lo) * digit / max(shape[k] - 1, 1)
+            if order == "F":
+                vidx = vidx + digit * fstrides[k]
+        vals = (np.asarray(flat_values[vidx], np.float32) - vmin) * vscale
+        return coords, vals.reshape(-1, 1)
+
+    return host_shard
+
+
+def flatten_volume_source(volume):
+    """(flat_values, order): a no-copy 1-D view of ``volume`` and the layout
+    tag for make_host_shard_fn. Fortran-contiguous sources (memmapped NIfTI)
+    are flattened in their native order, where a C-order reshape would
+    materialise the whole file."""
+    if hasattr(volume, "flags") and volume.ndim > 1 and volume.flags.f_contiguous \
+            and not volume.flags.c_contiguous:
+        return volume.reshape(-1, order="F"), "F"
+    if hasattr(volume, "reshape"):
+        return volume.reshape(-1), "C"
+    return np.asarray(volume).reshape(-1), "C"
+
+
+class _ShardFeed:
+    """The shards of a streamed fit, one ahead: :meth:`submit` has a worker
+    thread synthesise a shard on the host (into pinned memory on the card)
+    while the caller issues the steps of the one before; :meth:`get` copies
+    it to the device on a side stream and makes the current stream wait on
+    the copy's event. A pinned buffer is held until its copy's event has
+    completed. :meth:`drain` returns an epoch's seconds (host synthesis,
+    host-to-device copies, the caller's wait for a shard) after the caller
+    has synchronised."""
+
+    def __init__(self, synth: Callable, dev: torch.device):
+        self.synth, self.dev = synth, dev
+        self.pool = ThreadPoolExecutor(max_workers=1)
+        self.copy_stream = torch.cuda.Stream(dev) if dev.type == "cuda" else None
+        self.future = None
+        self.held: List = []  # (copy event, pinned tensors) until the event has completed
+        self.copies: List = []  # (start, end) events of this epoch's copies
+        self.synth_s = self.wait_s = 0.0
+
+    def _host(self, idx: np.ndarray):
+        t0 = time.perf_counter()
+        coords, values = (torch.from_numpy(a) for a in self.synth(idx))
+        if self.copy_stream is not None:
+            coords, values = coords.pin_memory(), values.pin_memory()
+        return coords, values, time.perf_counter() - t0
+
+    def submit(self, idx: np.ndarray) -> None:
+        self.future = self.pool.submit(self._host, idx)
+
+    def get(self):
+        t0 = time.perf_counter()
+        coords, values, synth_s = self.future.result()
+        self.wait_s += time.perf_counter() - t0
+        self.synth_s += synth_s
+        if self.copy_stream is None:
+            return coords, values
+        self.held = [(ev, bufs) for ev, bufs in self.held if not ev.query()]
+        current = torch.cuda.current_stream(self.dev)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        with torch.cuda.stream(self.copy_stream):
+            start.record()
+            coords_d = coords.to(self.dev, non_blocking=True)
+            values_d = values.to(self.dev, non_blocking=True)
+            end.record()
+        current.wait_event(end)
+        coords_d.record_stream(current)  # allocated on the copy stream, used on the current one
+        values_d.record_stream(current)
+        self.held.append((end, (coords, values)))
+        self.copies.append((start, end))
+        return coords_d, values_d
+
+    def drain(self):
+        h2d = sum(a.elapsed_time(b) for a, b in self.copies) / 1e3  # no copies on the CPU
+        out = (self.synth_s, h2d, self.wait_s)
+        self.held, self.copies = [], []
+        self.synth_s = self.wait_s = 0.0
+        return out
+
+    def close(self) -> None:
+        self.pool.shutdown(wait=True)
+
+
+def _take_step(model: Model, loss_fn: Callable, updates: "_Updates", x: torch.Tensor, y: torch.Tensor,
+               remat: bool) -> torch.Tensor:
+    """One mini-step: loss, backward, the optimizer chain; the loss, detached."""
+    loss = _step_loss(model, loss_fn, x, y, remat)
+    updates.zero_grad()
+    loss.backward()
+    updates.step()
+    return loss.detach()
+
+
+def _refuse_complex(model: Model) -> None:
+    if any(p.is_complex() for p in model.parameters()):
+        raise NotImplementedError(
+            "complex parameters (the complex GaborNet) are not trainable: the JAX trainer cannot fit them "
+            "either, so no reference holds such a fit (ROADMAP.md, section 3)")
+
+
+def _model_loss(model: Model, loss: str) -> Callable[[torch.Tensor, torch.Tensor], torch.Tensor]:
+    """``model.loss(x, y)`` where the model has that hook, else the named
+    loss of ``model(x)`` against ``y``."""
+    base_loss = get_loss(loss)
+    hook = model.loss
+
+    def loss_fn(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+        return hook(x, y) if hook is not None else base_loss(model(x), y)
+
+    return loss_fn
+
+
 def _result(epoch_losses, epoch_times, wall: float, hook_s: float = 0.0) -> TrainResult:
     """The TrainResult of a fit: per-step losses of every epoch, in order."""
     losses = np.concatenate(epoch_losses) if epoch_losses else np.array([])
@@ -282,10 +449,7 @@ class Trainer:
         ``eval_every_epochs`` epochs into the scalars stream."""
         cfg = self.config
         dev = resolve_device(device)
-        if any(p.is_complex() for p in model.parameters()):
-            raise NotImplementedError(
-                "complex parameters (the complex GaborNet) are not trainable: the JAX trainer cannot fit them "
-                "either, so no reference holds such a fit (ROADMAP.md, section 3)")
+        _refuse_complex(model)
         n = len(coords)
         batch = min(cfg.batch_size, n)
         steps_per_epoch = n // batch if cfg.drop_last else -(-n // batch)
@@ -294,12 +458,7 @@ class Trainer:
 
         model.to(dev).train()
         updates = _Updates(cfg, model, steps_per_epoch, self.freeze_mask_fn)
-        base_loss = get_loss(cfg.loss)
-        hook = model.loss
-
-        def loss_fn(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-            return hook(x, y) if hook is not None else base_loss(model(x), y)
-
+        loss_fn = _model_loss(model, cfg.loss)
         coords_d = torch.as_tensor(np.asarray(coords, dtype=np.float32)).to(dev)
         values_d = torch.as_tensor(np.asarray(values, dtype=np.float32)).to(dev)
         gen = torch.Generator(device=dev).manual_seed(cfg.seed)
@@ -320,13 +479,7 @@ class Trainer:
                 idx = perm[: steps_per_epoch * batch].view(steps_per_epoch, batch)
                 losses = torch.empty(steps_per_epoch, device=dev)
                 for s in range(steps_per_epoch):
-                    xb = coords_d[idx[s]]
-                    yb = values_d[idx[s]]
-                    loss = _step_loss(model, loss_fn, xb, yb, cfg.remat)
-                    updates.zero_grad()
-                    loss.backward()
-                    updates.step()
-                    losses[s] = loss.detach()
+                    losses[s] = _take_step(model, loss_fn, updates, coords_d[idx[s]], values_d[idx[s]], cfg.remat)
                 epoch_losses = losses.cpu().numpy()  # the epoch's one host sync
                 epoch_times.append(time.perf_counter() - te)
                 all_losses.append(epoch_losses)
@@ -336,6 +489,85 @@ class Trainer:
         finally:
             hooks.close()
         return _result(all_losses, epoch_times, time.perf_counter() - t0, hook_s)
+
+    def fit_streaming(self, model: Model, volume, shard_voxels: int = 1 << 22, lo: float = 0.0, hi: float = 1.0,
+                      value_range=None, device: DeviceLike = None,
+                      eval_fn: Optional[Callable] = None) -> TrainResult:
+        """Out-of-core fit of ``model`` in place on ``device`` (``cuda``
+        unless "cpu") to the grid ``volume`` (any array-like, ``np.memmap``
+        included: values are fancy-indexed a shard at a time, so the whole
+        volume need not be in memory; the host pays 8 bytes a voxel for the
+        epoch's int64 permutation).
+
+        The JAX package's shard arithmetic: ``steps_per_shard = shard //
+        batch`` with ``shard = min(max(shard_voxels, batch), n)``, ``n_shards
+        = ceil(n / shard)`` shards an epoch, the last one padded from the
+        permutation's head; grids of 2^31 voxels or more are refused. Each
+        epoch is one ``np.random.default_rng(cfg.seed).permutation(n)``
+        (``shuffle`` and ``drop_last`` are not read). Coordinates run from
+        ``lo`` to ``hi``; values are min-max normalised as
+        ``io.dataset_from_array`` does, ``value_range=(vmin, vmax)`` gives
+        the range (sparing the scan over the source) and ``False`` leaves
+        the values as they are. Schedule, accumulation, freeze mask, remat,
+        the loss hook and the epoch hooks are ``fit``'s, with the cosine over
+        ``n_shards * steps_per_shard`` steps an epoch."""
+        cfg = self.config
+        dev = resolve_device(device)
+        _refuse_complex(model)
+        shape = tuple(int(s) for s in volume.shape)
+        n = int(np.prod(shape))
+        if n >= 2**31:
+            raise ValueError(f"grid {shape} exceeds int32 flat indexing")
+        batch = min(cfg.batch_size, n)
+        shard = min(max(shard_voxels, batch), n)
+        steps_per_shard = shard // batch  # equal shapes; the tail wraps
+        shard = steps_per_shard * batch
+        n_shards = -(-n // shard)
+        steps_per_epoch = n_shards * steps_per_shard
+
+        model.to(dev).train()
+        updates = _Updates(cfg, model, steps_per_epoch, self.freeze_mask_fn)
+        loss_fn = _model_loss(model, cfg.loss)
+        flat_values, vorder = flatten_volume_source(volume)
+        vmin, vscale = resolve_value_range(flat_values, n, shard, value_range)
+        feed = _ShardFeed(make_host_shard_fn(shape, lo, hi, flat_values, vmin, vscale, vorder), dev)
+        hooks = EpochHooks(cfg, steps_per_epoch, eval_fn)
+
+        rng = np.random.default_rng(cfg.seed)
+        all_losses, epoch_times, hook_s, streamed = [], [], 0.0, []
+        t0 = time.perf_counter()
+        try:
+            for e in range(cfg.epochs):
+                te = time.perf_counter()
+                perm = rng.permutation(n).astype(np.int64)
+                pad = n_shards * shard - n
+                if pad:
+                    perm = np.concatenate([perm, perm[:pad]])
+                feed.submit(perm[:shard])
+                losses = torch.empty(steps_per_epoch, device=dev)
+                for s in range(n_shards):
+                    coords_d, values_d = feed.get()
+                    if s + 1 < n_shards:  # the next shard's host synthesis overlaps this one's steps
+                        feed.submit(perm[(s + 1) * shard:(s + 2) * shard])
+                    for j in range(steps_per_shard):
+                        rows = slice(j * batch, (j + 1) * batch)
+                        losses[s * steps_per_shard + j] = _take_step(model, loss_fn, updates, coords_d[rows],
+                                                                     values_d[rows], cfg.remat)
+                    del coords_d, values_d  # free this shard before the next one's copy allocates
+                epoch_losses = losses.cpu().numpy()  # the epoch's one host sync
+                epoch_times.append(time.perf_counter() - te)
+                streamed.append(feed.drain())
+                all_losses.append(epoch_losses)
+                th = time.perf_counter()
+                hooks.after_epoch(e, epoch_losses, model, updates.state_dict)
+                hook_s += time.perf_counter() - th
+        finally:
+            hooks.close()
+            feed.close()
+        result = _result(all_losses, epoch_times, time.perf_counter() - t0, hook_s)
+        if streamed:
+            result.host_synth_s, result.h2d_s, result.shard_wait_s = (np.asarray(c) for c in zip(*streamed))
+        return result
 
     def fit_frames(self, model: Model, frame_coords: np.ndarray, frame_values: np.ndarray,
                    device: DeviceLike = None) -> TrainResult:

@@ -210,15 +210,24 @@ def test_launcher_streams_eval_and_epoch_checkpoints(volume, tmp_path):
 
 @pytest.mark.parametrize("name, value", [("save_latents", True), ("tb_events", True)])
 def test_launcher_unported_output_options_raise(volume, tmp_path, name, value):
-    """``tb_events`` is not ported and raises; ``save_latents``, ported since,
-    writes the flagship's encoder features, ``latents.nii.gz`` of shape
-    (16, 16, 8, 4), equal to ``evaluate_grid``'s latents of the saved model."""
+    """Both output options are ported. ``tb_events`` exports the run's
+    ``scalars.jsonl`` as a TensorBoard event file under ``tb/`` that reads
+    back equal to the stream; ``save_latents`` writes the flagship's encoder
+    features, ``latents.nii.gz`` of shape (16, 16, 8, 4), equal to
+    ``evaluate_grid``'s latents of the saved model."""
     cfg = RunConfig(image_path=volume, output_root=str(tmp_path), epochs=1, batch_size=512, interp_shapes=(),
                     **FLAGSHIP)
     setattr(cfg, name, value)
     if name == "tb_events":
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            launcher.run(cfg, device="cpu")
+        from mri_interpolation_tpu_torch.train.tb_events import read_event_file
+
+        run_dir = launcher.run(cfg, device="cpu")["run_dir"]
+        (event_file,) = os.listdir(os.path.join(run_dir, "tb"))
+        events = list(read_event_file(os.path.join(run_dir, "tb", event_file)))[1:]
+        recs = read_scalars(os.path.join(run_dir, "scalars.jsonl"))
+        assert len(recs) == 4 and [(e["step"], e["scalars"][0][0]) for e in events] == [
+            (r["step"], r["tag"]) for r in recs]
+        np.testing.assert_array_equal([e["scalars"][0][1] for e in events], np.float32([r["value"] for r in recs]))
         return
     run_dir = launcher.run(cfg, device="cpu")["run_dir"]
     latents = nifti.load(os.path.join(run_dir, "latents.nii.gz")).get_fdata(np.float32)

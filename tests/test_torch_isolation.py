@@ -399,6 +399,48 @@ def test_slice_ten_entry_points_raise_without_a_card(no_card, tmp_path):
     assert ctrl.device.type == "cpu"
 
 
+def test_slice_eleven_entry_points_raise_without_a_card(no_card, tmp_path):
+    """The streamed fit, the launcher's streaming branch, the sweep's CLI
+    and ``apply_psf`` run on the card or raise; the planners and writers
+    (``plan``, ``--plan``, the YAML reader, the event file, the figures, the
+    PNG and GIF writers, MNIST) touch no device and run without one."""
+    from mri_interpolation_tpu_torch import figures, plan
+    from mri_interpolation_tpu_torch.io import mnist, nifti, png, synthetic_volume
+    from mri_interpolation_tpu_torch.train import sweep, tb_events
+    from mri_interpolation_tpu_torch.utils import apply_psf, psf_kernel
+
+    model = make_hash_mlp(3, device="cpu", **TINY)
+    volume = synthetic_volume((4, 4, 4), seed=0)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Trainer(TrainConfig(batch_size=16)).fit_streaming(model, volume, shard_voxels=32)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        apply_psf(np.zeros((16, 1), np.float32), psf_kernel(2, 3), (4, 4))
+    path = str(tmp_path / "vol.nii.gz")
+    nifti.save(volume, path)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        launcher.run(RunConfig(image_path=path, output_root=str(tmp_path / "runs"), stream_shard_voxels=32))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        sweep.main(["--image_path", path, "--trials", "1", "--log_path", str(tmp_path / "s.jsonl")])
+    assert sorted(p.name for p in tmp_path.iterdir()) == ["vol.nii.gz"]
+    # without a device
+    assert launcher.main(["--image_path", path, "--plan"])["bytes"]["dataset"] == 64 * 4 * 4
+    assert plan.plan_run(dim_in=3)["bytes"]["table"] > 0
+    assert mnist.mnist_digit_dataset()[0].shape == (784, 2)
+    png.write_gif(str(tmp_path / "a.gif"), [np.zeros((2, 2), np.uint8)])
+    # the CPU, when asked for, works, and launches nothing
+    he.reset_launches()
+    fm.reset_launches()
+    res = Trainer(TrainConfig(batch_size=16, epochs=1)).fit_streaming(model, volume, shard_voxels=32, device="cpu")
+    assert res.steps == 4
+    summary = launcher.run(RunConfig(image_path=path, output_root=str(tmp_path / "runs"), stream_shard_voxels=32,
+                                     batch_size=16, interp_shapes=(), tb_events=True, **TINY), device="cpu")
+    assert summary["steps"] == 4
+    assert set(figures.make_figures(summary["run_dir"])) == {"grid", "gif", "convergence"}
+    jsonl = os.path.join(summary["run_dir"], "scalars.jsonl")
+    assert len(list(tb_events.read_event_file(tb_events.export_scalars_jsonl(jsonl, str(tmp_path / "tb"))))) == 5
+    assert set(he.LAUNCHES.values()) == {0} and set(fm.LAUNCHES.values()) == {0}
+
+
 def test_evaluate_grid_refuses_a_model_on_another_device():
     model = make_hash_mlp(3, device="cpu", **TINY)
     with pytest.raises(ValueError, match="model is on"):

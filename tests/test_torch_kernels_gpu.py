@@ -178,6 +178,32 @@ def test_warp_encoder_kernels_and_coordinate_gradient(n, cuda_device):
     assert float((xg.grad.cpu() - want).abs().max()) <= 1e-5 * float(want.abs().max())
 
 
+# the full-4D recipe's encoder (scripts/experiments.py:398-402) as the launcher builds it for the (352, 352, 6,
+# 15) volume: 5 levels x F = 4, paper growth, base rank-adapted to (64, 64, 2, 3); 12,134,251 rows, levels 0-3
+# dense (last axes of 3-16 vertices), level 4 hashed; every level global in kernel 2's plan
+FULL4D = dict(dim=4, n_levels=5, n_features_per_level=4, log2_hashmap_size=23, base_resolution=(64, 64, 2, 3),
+              finest_resolution=(352, 352, 6, 15), growth="paper")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [50_000, 131_072], ids=["train_batch", "grid_chunk"])
+def test_full4d_encoder_kernels(n, cuda_device):
+    """Kernels 1-2 at the full-4D recipe's geometry, its training batch and
+    a grid chunk, x in [0, 1]: 16 corners a point and level; the forward
+    within 2e-6, the table gradient per entry within the atomic bound."""
+    enc, x, table, g = _inputs(FULL4D, n, cuda_device, seed=5)
+    assert enc.total_size == 12_134_251 and enc.level_dense.tolist() == [True, True, True, True, False]
+    assert he.table_grad_plan(enc, n) == he.TableGradPlan((), (0, 1, 2, 3, 4), 1, 0)
+    he.reset_launches()
+    y = he.hash_encode_forward(enc, table, x)
+    dt = he.hash_encode_table_grad(enc, x, g)
+    torch.cuda.synchronize()
+    assert he.LAUNCHES == {**ZERO, "hash_encode_forward": 1, "hash_encode_table_grad": 1}
+    ref = he.hash_encode_reference(enc, table, x)
+    assert float((y - ref).abs().max()) <= _forward_bound(ref)
+    _assert_within_atomic_bound(dt, he.hash_encode_table_grad_reference(enc, x, g), enc, x, g)
+
+
 SEEDS = list(range(1, 25))
 
 

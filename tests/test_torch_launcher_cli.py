@@ -209,7 +209,20 @@ def test_main_reads_a_json_config(volume, tmp_path):
 
 
 @pytest.mark.parametrize("flag", [["--config_yaml", "x.yaml"], ["--plan"]])
-def test_unported_cli_options_raise(flag, tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        launcher.main(flag + ["--device", "cpu", "--output_root", str(tmp_path)])
+def test_unported_cli_options_raise(flag, volume, tmp_path, capsys):
+    """Both options are ported: ``--config_yaml`` reads a YAML run config
+    between the preset and the flags (here its epochs and widths), and
+    ``--plan`` prints the capacity plan as JSON and runs nothing."""
+    if flag[0] == "--config_yaml":
+        path = tmp_path / flag[1]
+        path.write_text("run:\n  epochs: 1\n  dim_hidden: 8\n  n_levels: 2\n  base_resolution: [4, 4, 2]\n"
+                        "  finest_resolution: [16, 12, 6]\n")
+        summary = _main(volume, tmp_path / "runs", "--config_yaml", str(path), "--epochs", "1", "--batch_size", "300")
+        assert summary["steps"] == 16 * 12 * 6 // 300 and json.loads(capsys.readouterr().out)["steps"] == summary["steps"]
+        text = open(os.path.join(summary["run_dir"], "config.txt")).read()
+        assert "dim_hidden : 8" in text and "n_levels : 2" in text
+        return
+    plan = launcher.main(flag + ["--image_path", volume, "--output_root", str(tmp_path / "runs")])
+    assert json.loads(capsys.readouterr().out) == json.loads(json.dumps(plan))
+    assert plan["bytes"]["dataset"] == 16 * 12 * 6 * 4 * 4 and plan["bytes"]["hbm_budget"] == 80e9
     assert list(tmp_path.iterdir()) == []

@@ -198,7 +198,21 @@ def test_launcher_rank_adapts_a_4d_volume(tmp_path):
 @pytest.mark.parametrize("field, value", [("shard_tables", True), ("data_parallel", True),
                                           ("stream_shard_voxels", 100), ("tb_events", True)])
 def test_launcher_unported_branches_raise(tmp_path, field, value):
-    cfg = RunConfig(image_path=_write_volume(tmp_path, (8, 8, 4)), output_root=str(tmp_path / "runs"))
+    """``shard_tables`` and ``data_parallel`` still raise, naming
+    ROADMAP.md; ``stream_shard_voxels`` (the out-of-core fit: 100-voxel
+    shards of 2 steps, 3 shards of the 256 voxels) and ``tb_events`` (the
+    event file under ``tb/``) run."""
+    cfg = RunConfig(image_path=_write_volume(tmp_path, (8, 8, 4)), output_root=str(tmp_path / "runs"), epochs=1,
+                    batch_size=50, dim_hidden=8, base_resolution=(2, 2, 2), finest_resolution=(8, 8, 4),
+                    interp_shapes=(), save_checkpoint=False)
     setattr(cfg, field, value)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        launcher.run(cfg, device="cpu")
+    if field in ("shard_tables", "data_parallel"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            launcher.run(cfg, device="cpu")
+        return
+    summary = launcher.run(cfg, device="cpu")
+    assert np.isfinite(summary["psnr"])
+    if field == "stream_shard_voxels":
+        assert summary["steps"] == 3 * 2 and len(summary["stream"]["host_synth_s"]) == 1
+    else:
+        assert summary["steps"] == 256 // 50 and len(os.listdir(os.path.join(summary["run_dir"], "tb"))) == 1
