@@ -9,7 +9,8 @@ Phases, each printed with its time as it ends:
 
 1. device: the card's name and power limit (nvidia-smi);
 2. build: the CUDA kernels from ``mri_interpolation_tpu_torch/ops/csrc`` with
-   nvcc (one process per source, all at once), then the probe kernel held
+   nvcc (one process per source, all at once) and the native NIfTI codec
+   (``mri_interpolation_tpu_torch/native``) with g++, then the probe kernel held
    exactly to ``2 * x`` and timed against ``torch.mul`` and an empty kernel
    (a launch alone) as medians of 200 launches each;
 3. kernels: each kernel against its plain PyTorch version on the card, at the
@@ -145,6 +146,22 @@ Phases, each printed with its time as it ends:
      30) grid by the separable path and by kernel 1 per chunk (``transform=
      lambda x: x``), held to each other (atol 1e-4 / 1e-5), their device
      and wall times, and ``transport="u16"`` within one step of f32;
+   - native: the launcher's whole-volume load through the native NIfTI
+     codec (built with g++ in phase 2) against numpy, on the (352, 352, 15)
+     ``.nii.gz`` and the full-4D ``.nii``: within 2^-23 of the largest
+     magnitude, and the seconds of each;
+   - export (after the multi-frame paths, whose model it serves): the
+     flagship's, path A's and path B's fitted models exported
+     (``infer.export_evaluator_bytes``), written, loaded and run on the
+     (352, 352, 30) grid in 114 chunks of 2^15, multi_hash_mlp's at frame 7,
+     and full4d_resident's at float32 and with bf16 tables on (352, 352, 6,
+     30) in 171 chunks of 2^17: each artifact equal to ``evaluate_grid``'s
+     per-chunk route within 1e-6 and launching each of its kernels once a
+     chunk (the flagship's also within 1e-4 of the separable route), bf16
+     within 5e-3 of float32, the full-4D files at or above the plan's
+     serving bytes and bf16 saving more than 0.4 x the table's; export,
+     write and load seconds, each artifact's grid wall beside
+     ``evaluate_grid``'s, the sizes;
 6. profile: device time by kernel over 20 training steps of each path (one
    epoch of 15 frames for the multi-frame models) and one grid evaluation
    of the flagship, paths A and B, ngp, protocol_tv, hash_siren and
@@ -2005,6 +2022,10 @@ def read_png(path: str) -> np.ndarray:
     return rows[:, 1:].reshape((h, w) if channels == 1 else (h, w, 3))
 
 
+# fitted models the export phase serves again: multi_hash_mlp's (drive_frames) and full4d_resident's (drive_full4d)
+MODELS = {}
+
+
 def counted(fn):
     """``fn()`` with the counters at 0 just before and read just after:
     (result, seconds, launches)."""
@@ -2056,6 +2077,7 @@ def drive_full4d(torch, tmp: str, zero: dict, paths: dict) -> dict:
 
     def spy_fit(self, model, coords, values, **kw):
         captured["dataset"] = sum(np.asarray(a, dtype=np.float32).nbytes for a in (coords, values))
+        MODELS["full4d_resident"] = model
         return fit(self, model, coords, values, **kw)
 
     runs = {}
@@ -2336,6 +2358,7 @@ def drive_frames(name: str, make_model, cfg, img, zero_centered: bool, expected:
            "grid_s_per_frame": float(np.median(grid_times)), "grid_voxels_per_s": voxels / float(np.median(grid_times)),
            "psnr": quality["psnr"], "ssim": quality["ssim"], "final_loss": res.final_loss,
            "param_count": sum(p.numel() for p in model.parameters()), "wall_s": seconds, "launches": launches}
+    MODELS[name] = model
     log(f"[{name}] fit_frames: {steps} steps in {res.wall_time_s:.3f} s (epochs {res.epoch_times_s.round(4).tolist()} "
         f"s), steady {out['steady_steps_per_s']:.1f} steps/s = {out['train_voxel_evals_per_s']:,.0f} training "
         "voxel-evals/s")
@@ -2461,13 +2484,182 @@ def profile_main_paths(torch) -> None:
             log(f"    {ms / per:9.4f} ms  x{n / per:5.1f}  {k[:90]}")
 
 
+EXPORT_CHUNK = 1 << 15  # the JAX export's default chunk: (352, 352, 30) in 114 chunks
+EXPORT_FRAME = 7  # the multi-frame artifact's frame
+BF16_ATOL = 5e-3  # bf16 tables against float32 (tests/test_infer.py:210,220)
+
+
+def model_of_run(launcher, argv, run_dir):
+    """The model a ``launcher.main(argv)`` run fitted, rebuilt from its flags
+    and its checkpoint, and whether its grid is zero-centred."""
+    import torch
+    from mri_interpolation_tpu_torch import configs
+    from mri_interpolation_tpu_torch.train import restore_checkpoint
+
+    args = launcher.build_parser().parse_args(argv)
+    cfg = configs.default_siren_config() if args.config_preset == "siren" else configs.default_hash_config()
+    cfg = configs.override_from_args(cfg, args)
+    model = launcher.build_model(cfg, 3, torch.device("cuda"))
+    model.load_state_dict(restore_checkpoint(os.path.join(run_dir, "checkpoints"))["model"])
+    return model, cfg.zero_centered
+
+
+def serve(name: str, model, shape, directory: str, expected: dict, lo: float = 0.0, frame_idx=None,
+          chunk=None, table_dtype=None) -> dict:
+    """Export ``model``'s evaluator over ``shape``, write and load it, run it
+    with the counters at 0 just before and read just after (it must launch
+    ``expected``), and hold it to ``evaluate_grid``'s per-chunk route (on
+    the model with its tables cast to ``table_dtype``, if given) at the
+    same chunk size (default ``EXPORT_CHUNK``; atol 1e-6); then time one
+    more call of each. Returns
+    the volume and the numbers."""
+    import torch
+    from mri_interpolation_tpu_torch.infer import evaluate_grid, export_evaluator_bytes, load_evaluator, quantize_tables
+
+    kw = {} if frame_idx is None else {"frame_idx": frame_idx}
+    chunk = EXPORT_CHUNK if chunk is None else chunk
+    t0 = time.perf_counter()
+    blob = export_evaluator_bytes(model, shape, lo=lo, chunk_size=chunk, table_dtype=table_dtype, **kw)
+    export_s = time.perf_counter() - t0
+    path = os.path.join(directory, f"{name}.pt2")
+    t0 = time.perf_counter()
+    with open(path, "wb") as f:
+        f.write(blob)
+    write_s = time.perf_counter() - t0
+    del blob
+    t0 = time.perf_counter()
+    fn = load_evaluator(path)
+    load_s = time.perf_counter() - t0
+    vol, first_s, launches = counted(fn)
+    if launches != expected:
+        fail(f"export {name}: the artifact launched {launches}; expected {expected}")
+    served = model if table_dtype is None else quantize_tables(model, table_dtype)
+    ref = evaluate_grid(served, shape, lo=lo, chunk_size=chunk, transform=lambda x: x, **kw)
+    err = float(np.abs(vol - ref).max())
+    if vol.shape != ref.shape or not math.isfinite(err) or err > 1e-6:
+        fail(f"export {name}: artifact {vol.shape} against evaluate_grid {ref.shape}: max abs err {err} > 1e-6")
+    _, wall_s, _ = counted(fn)
+    _, grid_s, _ = counted(lambda: evaluate_grid(served, shape, lo=lo, chunk_size=chunk, transform=lambda x: x, **kw))
+    del served
+    out = {"shape": list(shape), "chunks": -(-int(np.prod(shape)) // chunk), "bytes": os.path.getsize(path),
+           "export_s": export_s, "write_s": write_s, "load_s": load_s, "first_call_s": first_s, "wall_s": wall_s,
+           "evaluate_grid_s": grid_s, "max_abs_err": err, "launches": launches, "path": path}
+    log(f"[export] {name}: {out['chunks']} chunks of {chunk:,d}; export + serialise {export_s:.3f} s, write "
+        f"{write_s:.3f} s, load {load_s:.3f} s, {out['bytes']:,d} bytes; grid wall {wall_s * 1e3:.3f} ms (first call "
+        f"{first_s * 1e3:.3f} ms) against evaluate_grid's per-chunk route {grid_s * 1e3:.3f} ms; max abs err {err:.3e} "
+        f"(atol 1e-6); launches {launches}")
+    return {"vol": vol, **out}
+
+
+def keep_served_models(paths: dict) -> None:
+    """The flagship's, path A's and path B's fitted models, rebuilt from their
+    runs' checkpoints into ``MODELS`` for the export phase, which runs after
+    the run directories are gone; and each grid's ``lo``."""
+    from mri_interpolation_tpu_torch import launcher
+    from mri_interpolation_tpu_torch.models import make_hash_mlp
+    from mri_interpolation_tpu_torch.train import restore_checkpoint
+
+    flagship = make_hash_mlp(3)
+    flagship.load_state_dict(restore_checkpoint(os.path.join(paths["flagship"]["run_dir"], "checkpoints"))["model"])
+    MODELS["flagship"] = (flagship, 0.0)
+    common = ["--image_path", "unused.nii.gz", "--epochs", "1", "--interp_shapes", str(GRID)]
+    for name, argv in (("A", ["--config_preset", "siren", *common]), ("B", [*TCNN_FLAGS, *common])):
+        model, zero_centered = model_of_run(launcher, argv, paths[name]["run_dir"])
+        MODELS[name] = (model, -1.0 if zero_centered else 0.0)
+
+
+def drive_export(torch, paths: dict, plan: dict, zero: dict) -> None:
+    """The serving export (``infer.save_evaluator``'s archive, ``load_evaluator``)
+    on the card: the flagship's, path A's and path B's fitted models on the
+    (352, 352, 30) grid in 114 chunks, the multi-frame HashMLP at frame 7,
+    and full4d_resident's model (12,134,251 rows x F = 4) on (352, 352, 6, 30)
+    at float32 and with bf16 tables, each artifact held to ``evaluate_grid``
+    and launching each of its kernels once a chunk; the flagship's also
+    against the separable route (atol 1e-4, as the grid routes), the bf16
+    volume within 5e-3 of the float32 one, and the full-4D files against the
+    plan's serving bytes."""
+    from mri_interpolation_tpu_torch.infer import evaluate_grid
+
+    n = -(-int(np.prod(GRID)) // EXPORT_CHUNK)
+    total = dict(zero)
+    rows = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_export_") as tmp:
+        for name, want in (("flagship", {"hash_encode_forward": n}), ("A", {"fused_mlp_forward": n}),
+                           ("B", {"hash_encode_forward": n, "fused_mlp_forward": n})):
+            model, lo = MODELS.pop(name)
+            rows[name] = serve(name, model, GRID, tmp, {**zero, **want}, lo=lo)
+            if name == "flagship":
+                err = float(np.abs(rows[name]["vol"] - evaluate_grid(model, GRID)).max())
+                if not math.isfinite(err) or err > 1e-4:
+                    fail(f"export flagship: the artifact and the separable route differ by {err} > 1e-4")
+                log(f"[export] flagship against the separable route: max abs diff {err:.3e} (atol 1e-4)")
+        m = -(-int(np.prod(FRAME)) // EXPORT_CHUNK)
+        rows["multi_hash_mlp"] = serve("multi_hash_mlp", MODELS.pop("multi_hash_mlp"), FRAME, tmp,
+                                       {**zero, "hash_encode_forward": m, "fused_mlp_forward": m},
+                                       frame_idx=EXPORT_FRAME)
+        model = MODELS.pop("full4d_resident")
+        k = -(-int(np.prod(FULL4D_GRID)) // (1 << 17))
+        want = {**zero, "hash_encode_forward": k, "fused_mlp_forward": k}
+        f32 = serve("full4d_f32", model, FULL4D_GRID, tmp, want, chunk=1 << 17)
+        bf16 = serve("full4d_bf16", model, FULL4D_GRID, tmp, want, chunk=1 << 17, table_dtype=torch.bfloat16)
+        rows.update(full4d_f32=f32, full4d_bf16=bf16)
+        err = float(np.abs(bf16["vol"] - f32["vol"]).max())
+        if not math.isfinite(err) or err > BF16_ATOL:
+            fail(f"export full4d: bf16 tables move the volume by {err} > {BF16_ATOL}")
+        serving, table = plan["serving"], plan["bytes"]["table"]
+        over32, over16 = f32["bytes"] - serving["artifact_f32_bytes"], bf16["bytes"] - serving["artifact_bf16_table_bytes"]
+        shrink = f32["bytes"] - bf16["bytes"]
+        if over32 < 0 or over16 < 0 or shrink <= 0.4 * table:
+            fail(f"export full4d: files {f32['bytes']:,d} / {bf16['bytes']:,d} bytes against the plan's "
+                 f"{serving['artifact_f32_bytes']:,d} / {serving['artifact_bf16_table_bytes']:,d}; bf16 saves {shrink:,d} "
+                 f"of 0.4 x {table:,d}")
+        log(f"[export] full4d: bf16 tables move the volume by {err:.3e} (atol {BF16_ATOL}); files {f32['bytes']:,d} / "
+            f"{bf16['bytes']:,d} bytes, {over32:,d} / {over16:,d} above the plan's serving bytes "
+            f"({serving['artifact_f32_bytes']:,d} / {serving['artifact_bf16_table_bytes']:,d}); bf16 saves {shrink:,d} "
+            f"bytes = {shrink / table:.3f} x the float32 table's {table:,d}")
+        del model
+        for row in rows.values():
+            for key in total:
+                total[key] += row["launches"][key]
+            del row["vol"]
+    MODELS.clear()
+    paths["export"] = {"launches": total, "artifacts": rows}
+
+
+def check_native_load(paths: dict, volumes) -> None:
+    """The launcher's whole-volume load (``io.load_volume``) through the native
+    codec against ``use_native=False`` (numpy) on each file: max |delta| of
+    the coordinates and the values within 2^-23 of the largest magnitude
+    (an ulp: the codec scales by a reciprocal and steps its grid by a
+    product), shapes and pixdim equal; the seconds of each."""
+    from mri_interpolation_tpu_torch.io import load_volume
+
+    for path in volumes:
+        t0 = time.perf_counter()
+        fast = load_volume(path)
+        native_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        slow = load_volume(path, use_native=False)
+        numpy_s = time.perf_counter() - t0
+        errs = {k: float(np.abs(getattr(fast, k) - getattr(slow, k)).max() / np.abs(getattr(slow, k)).max())
+                for k in ("coords", "values")}
+        if fast.shape != slow.shape or fast.pixdim != slow.pixdim or max(errs.values()) > 2.0**-23:
+            fail(f"native load {path}: shapes {fast.shape} / {slow.shape}, pixdim {fast.pixdim} / {slow.pixdim}, "
+                 f"max relative |delta| {errs} (limit 2^-23)")
+        paths.setdefault("native_load", {"launches": {k: 0 for k in SOURCES}})[os.path.basename(path)] = {
+            "native_s": native_s, "numpy_s": numpy_s, **errs}
+        log(f"[native] load_volume {os.path.basename(path)} {fast.shape}: native codec {native_s:.3f} s, numpy "
+            f"{numpy_s:.3f} s ({numpy_s / native_s:.2f}x); max |delta| / max |x|: coords {errs['coords']:.3e}, values "
+            f"{errs['values']:.3e} (limit 2^-23 = {2.0**-23:.3e})")
+
+
 def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card", file=sys.stderr)
         return 1
-    from mri_interpolation_tpu_torch import bench_kernels, launcher
+    from mri_interpolation_tpu_torch import bench_kernels, launcher, native
     from mri_interpolation_tpu_torch.configs import RunConfig
     from mri_interpolation_tpu_torch.encodings import HashGridEncoding
     from mri_interpolation_tpu_torch.io import dataset_from_array, nifti, synthetic_volume
@@ -2498,6 +2690,8 @@ def main() -> int:
         f"{time.perf_counter() - t0:.1f} s")
     for name, out in build.build_logs().items():
         log(f"[build] {name}:\n{out.strip()}")
+    t0 = time.perf_counter()
+    log(f"[build] native NIfTI codec (g++): {native.build()} in {time.perf_counter() - t0:.2f} s")
     probe_row = check_probe(torch, pr, dev)
     log(f"[build] probe kernel exact against 2 * x on {pr.PROBE_SHAPE}: kernel {probe_row['ms']} ms, "
         f"plain {probe_row['plain_ms']:.4f} ms, torch.mul {probe_row['library_ms']} ms")
@@ -2579,11 +2773,13 @@ def main() -> int:
         drive_slice_ten_paths(path, img, tmp, zero, paths)
         check_grid_routes(paths)
         t0 = time.perf_counter()
-        drive_full4d(torch, tmp, zero, paths)
+        plan = drive_full4d(torch, tmp, zero, paths)
         log(f"[full4d] done in {time.perf_counter() - t0:.1f} s")
         t0 = time.perf_counter()
         drive_tooling(torch, path, tmp, zero, paths)
         log(f"[tooling] done in {time.perf_counter() - t0:.1f} s")
+        check_native_load(paths, [path, os.path.join(tmp, "synthetic_352x352x6x15.nii")])
+        keep_served_models(paths)
 
     # the kernel bench: each timed call runs once to check, 3 times to warm up, ITERS times timed
     calls = 1 + 3 + bench_kernels.ITERS
@@ -2598,6 +2794,11 @@ def main() -> int:
     paths["multi_siren"] = drive_frames(
         "multi_siren", lambda: make_multi_siren(**MULTI_SIREN), TrainConfig(epochs=2, lr=1e-4), img, True,
         {**zero, "fused_mlp_forward": 2 * 30 + 2 * 15, "fused_mlp_backward": 2 * 30})
+
+    # the serving export: artifacts of the fitted models, each launch counted
+    t0 = time.perf_counter()
+    drive_export(torch, paths, plan, zero)
+    log(f"[export] done in {time.perf_counter() - t0:.1f} s")
 
     # 6. where the time goes: device time by kernel over short fits and grid evaluations
     t0 = time.perf_counter()

@@ -33,6 +33,7 @@ for it either).
 
 from __future__ import annotations
 
+import functools
 from typing import Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -44,6 +45,8 @@ __all__ = ["HashGridEncoding", "PRIMES", "LEVEL_CONST_WIDTH", "CELL_VIEW_MAX_CEL
 PRIMES = (1, 2654435761, 805459861, 3674653429, 2097192037, 1434869437, 2165219737)
 
 _MASK32 = 0xFFFFFFFF
+
+_STORAGE_CODES = {"auto": 0, "hashed": 1, "dense": 2}
 
 # int32 words per level in the kernels' constant block (ops/csrc/hash_encode.cu
 # struct Level): res[4], vertex strides[4], size, offset, dense, source (the
@@ -133,15 +136,21 @@ class HashGridEncoding:
         res, sizes = _level_geometry(
             dim, n_levels, log2_hashmap_size, base_resolution, finest_resolution, per_level_scale, growth
         )
+        self._set_levels(res, sizes, isinstance(base_resolution, (int, float)))
+
+    def _set_levels(self, res: np.ndarray, sizes: np.ndarray, isotropic: bool) -> None:
+        """The per-level tables from the resolutions (L, d) and the hashed
+        levels' sizes, and the key that :meth:`from_key` rebuilds them from."""
+        budget = 2**self.log2_hashmap_size
+        n_levels = res.shape[0]
         self.level_resolutions = res  # (L, d) int32
         vertex_counts = np.prod(res.astype(np.int64) + 1, axis=1)
-        budget = 2**log2_hashmap_size
-        if storage == "hashed":
+        if self.storage == "hashed":
             dense = np.zeros(n_levels, dtype=bool)
-        elif storage == "dense":
+        elif self.storage == "dense":
             if (vertex_counts > budget).any():
                 raise ValueError(
-                    f"storage='dense' but some level's vertex grid exceeds the 2^{log2_hashmap_size} "
+                    f"storage='dense' but some level's vertex grid exceeds the 2^{self.log2_hashmap_size} "
                     f"budget: {vertex_counts}"
                 )
             dense = np.ones(n_levels, dtype=bool)
@@ -156,6 +165,22 @@ class HashGridEncoding:
         cell_counts = np.prod(res.astype(np.int64), axis=1)
         self.level_cellview = dense & (cell_counts <= CELL_VIEW_MAX_CELLS)  # (L,) bool
         self.kernel_constants = self.level_constants()  # host block for the CUDA kernels
+        self._key = (self.input_dim, self.n_features_per_level, self.log2_hashmap_size,
+                     _STORAGE_CODES[self.storage], int(isotropic), *(int(r) for r in res.ravel()))
+
+    def geometry_key(self) -> Tuple[int, ...]:
+        """The geometry as ints, the kernels' ops' ``int[] geometry``
+        argument: dim, F, log2_hashmap_size, the storage code, whether a
+        hashed level's size counts its first axis (an isotropic base
+        resolution) or its largest, then the (L, d) level resolutions row by
+        row. :meth:`from_key` rebuilds an equal geometry from it."""
+        return self._key
+
+    @staticmethod
+    def from_key(key: Sequence[int]) -> "HashGridEncoding":
+        """The geometry of :meth:`geometry_key` ``key`` (cached: one object a
+        key). Its ``init_scale`` is the default: a key carries no table."""
+        return _encoding_from_key(tuple(key))
 
     def init(self, generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """The fused table, U(-init_scale, init_scale), drawn on the CPU so one
@@ -273,6 +298,20 @@ class HashGridEncoding:
             ids_levels.append(torch.stack(ids_c, dim=-1))
             w_levels.append(torch.stack(w_c, dim=-1))
         return torch.stack(ids_levels, dim=1), torch.stack(w_levels, dim=1)
+
+
+@functools.lru_cache(maxsize=None)
+def _encoding_from_key(key: Tuple[int, ...]) -> HashGridEncoding:
+    dim, F, log2, storage, isotropic = key[:5]
+    res = np.asarray(key[5:], dtype=np.int64).reshape(-1, dim)
+    basis = res[:, 0] if isotropic else res.max(axis=1)
+    sizes = np.minimum(basis.astype(object) ** dim, 2**log2).astype(np.int64)
+    enc = HashGridEncoding.__new__(HashGridEncoding)
+    enc.input_dim, enc.n_levels, enc.n_features_per_level, enc.log2_hashmap_size = dim, res.shape[0], F, log2
+    enc.output_dim, enc.init_scale = res.shape[0] * F, 1e-4
+    enc.storage = {code: name for name, code in _STORAGE_CODES.items()}[storage]
+    enc._set_levels(res.astype(np.int32), sizes, bool(isotropic))
+    return enc
 
 
 def temporal_table_tv(enc: HashGridEncoding, table: torch.Tensor) -> torch.Tensor:

@@ -111,7 +111,7 @@ def _grid_on_device(model: Model, shape, lo: float, hi: float, chunk_size: int, 
     geometry = getattr(getattr(model, "encoder", None), "geometry", None)
     if (split and transform is None and lo == 0.0 and hi == 1.0 and geometry is not None
             and geometry.supports_grid_path()):
-        z = geometry.apply_grid(model.encoder.table, shape, lo, hi)  # (n, L*F), once for the grid
+        z = geometry.apply_grid(model.encoder.table.float(), shape, lo, hi)  # (n, L*F), once for the grid
         y, _ = _eval_chunks(model, n, chunk_size, dev,
                             lambda start, stop: (_decode_weighted(model, _padded_chunk(z[start:stop], stop - start)),
                                                  None))

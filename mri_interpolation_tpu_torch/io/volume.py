@@ -1,9 +1,10 @@
 """Volume -> (coordinates, intensities) dataset construction.
 
-A copy of ``mri_interpolation_tpu/io/volume.py`` (numpy only) without its
-``native`` fast path: the port imports nothing of the JAX package. The whole
-normalized dataset is built once as numpy arrays; the trainer moves it to the
-device in one copy and batches by on-device gathers.
+A copy of ``mri_interpolation_tpu/io/volume.py``: whole-volume loads go
+through the port's own native codec (``mri_interpolation_tpu_torch.native``,
+as the JAX package's do), the rest through numpy. The whole normalized
+dataset is built once as numpy arrays; the trainer moves it to the device
+in one copy and batches by on-device gathers.
 """
 
 from __future__ import annotations
@@ -93,11 +94,31 @@ def load_volume(
     path: str,
     zero_centered: bool = False,
     slice_axes: Optional[Tuple] = None,
+    use_native: bool = True,
 ) -> VoxelDataset:
     """Load a NIfTI file into a VoxelDataset. ``slice_axes`` is an optional
     tuple of slices applied to the raw volume before gridding, e.g.
     ``(slice(None), slice(None), 3, slice(None))`` for the (x, y, t) slice at
-    z=3."""
+    z=3.
+
+    A whole-volume load goes through the native codec (decode, normalise and
+    coordinates in C++, built with g++ at first use), as the JAX package's
+    does when its codec is built: the two agree bit for bit, and differ from
+    numpy's by an ulp (the codec scales by a reciprocal and steps its grid by
+    a product). Slicing or ``use_native=False`` takes numpy, and so does a
+    datatype the codec does not decode (``native.UnsupportedLayout``: int8,
+    uint16, uint32, int64, uint64). Unlike the JAX package, no other error is
+    swallowed: a missing compiler or a failed build raises."""
+    if use_native and slice_axes is None:
+        from .. import native
+
+        try:
+            data, shape, pixdim = native.load_volume_native(path, zero_centered=zero_centered)
+        except native.UnsupportedLayout:
+            pass
+        else:
+            coords = native.make_coords_native(shape, lo=-1.0 if zero_centered else 0.0, hi=1.0)
+            return VoxelDataset(coords=coords, values=data.reshape(-1, 1), shape=shape, pixdim=pixdim)
     img = nifti.load(path)
     data = img.get_fdata(dtype=np.float32)
     if slice_axes is not None:

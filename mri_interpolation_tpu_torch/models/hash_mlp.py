@@ -50,7 +50,9 @@ _ACTS = {
 
 
 class HashGridEncoder(nn.Module):
-    """The fused hash table as a parameter, encoded by ``ops.hash_encode.HashEncode``."""
+    """The fused hash table as a parameter, encoded by ``ops.hash_encode.HashEncode``.
+    A table stored in another float type (``infer.quantize_tables``' bf16)
+    is read as float32: the kernels take float32."""
 
     def __init__(self, geometry: HashGridEncoding, generator: Optional[torch.Generator] = None):
         super().__init__()
@@ -58,7 +60,13 @@ class HashGridEncoder(nn.Module):
         self.table = nn.Parameter(geometry.init(generator))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return HashEncode.apply(self.table, x, self.geometry)
+        return HashEncode.apply(as_f32(self.table), x, self.geometry)
+
+
+def as_f32(table: torch.Tensor) -> torch.Tensor:
+    """``table`` as float32: itself, or a float32 copy of a table stored
+    narrower (the JAX package's "gathered rows promote on first use")."""
+    return table if table.dtype == torch.float32 else table.float()
 
 
 def level_anneal_weights(anneal_step: torch.Tensor, steps: int, geometry: HashGridEncoding) -> torch.Tensor:

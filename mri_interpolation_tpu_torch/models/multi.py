@@ -38,6 +38,7 @@ from ..encodings.hashgrid import HashGridEncoding
 from ..ops.fused_mlp import fused_mlp_apply, fused_siren_apply
 from ..ops.hash_encode import HashEncode
 from .core import Dense, Model, dense_init
+from .hash_mlp import as_f32
 from .siren import siren_init
 
 __all__ = ["MultiSiren", "MultiHashMLP", "make_multi_siren", "make_multi_hash_mlp"]
@@ -108,7 +109,7 @@ class MultiHashMLP(Model):
                                      for i in range(len(widths) - 1))
 
     def forward(self, x: torch.Tensor, frame_idx: int = 0) -> torch.Tensor:
-        z = HashEncode.apply(self.encoders.table[frame_idx], x, self.geometry)
+        z = HashEncode.apply(as_f32(self.encoders.table[frame_idx]), x, self.geometry)
         return fused_mlp_apply([layer.params for layer in self.decoder], z, "relu")
 
 

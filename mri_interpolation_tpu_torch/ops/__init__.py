@@ -11,6 +11,10 @@
   ``scripts/bench_pallas_exec.py``).
 
 Sources live in ``csrc/`` and are built by ``build.py`` at first use.
+Kernels 1-6 are reached through the dispatcher ops ``torch.ops.mri_torch.*``
+(``library.py``, registered when this package is imported): a CUDA impl
+that launches the kernel, a CPU impl that runs the plain version, and a
+fake impl for tracing.
 """
 
 from .hash_encode import (
@@ -25,6 +29,7 @@ from .hash_encode import (
     hash_encode_table_grad_reference,
     reset_launches,
 )
+from . import library  # noqa: F401  (registers the ops)
 
 __all__ = [
     "LAUNCHES",

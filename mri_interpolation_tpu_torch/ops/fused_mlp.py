@@ -13,10 +13,15 @@ layer l computes ``act_l(h @ W_l + b_l)``. An activation is one of
 approximation) and ``("id",)``, exactly as the JAX module's ``_act`` /
 ``_act_grad``.
 
-Dispatch: CPU tensors go to the plain PyTorch versions
-(:func:`mlp_forward_reference`, :func:`mlp_backward_reference`); CUDA tensors
-go to the kernels, or the wrapper raises. Each wrapper adds one to its entry
-of :data:`LAUNCHES` per call that launches its kernel(s), and nowhere else.
+Dispatch: :func:`mlp_forward` and :func:`mlp_backward` call the ops
+``torch.ops.mri_torch.fused_mlp_forward`` / ``fused_mlp_backward``
+(``ops/library.py``), which take the layers as one list (w_0, b_0, w_1, ...)
+and the activations as kind codes (:data:`ACT_CODES`) and sine frequencies
+in one float list (:func:`act_words`). Their CPU impls are the plain
+PyTorch versions (:func:`mlp_forward_reference`,
+:func:`mlp_backward_reference`); their CUDA impls launch the kernels, or
+raise. The CUDA impls add one to their entry of :data:`LAUNCHES` per call
+that launches its kernel(s), and nowhere else.
 
 The forward kernel routes each layer before launch, by activation and shape
 (:func:`forward_plan`; the C side derives the layout from its choices and
@@ -42,6 +47,8 @@ from .build import H100_SMS
 __all__ = [
     "LAUNCHES",
     "MAX_LAYERS",
+    "ACT_CODES",
+    "act_words",
     "reset_launches",
     "siren_acts",
     "mlp_acts",
@@ -68,7 +75,7 @@ __all__ = [
 LAUNCHES = {"fused_mlp_forward": 0, "fused_mlp_backward": 0}
 
 MAX_LAYERS = 16  # csrc/fused_mlp.cu kMaxLayers
-_ACT_CODES = {"id": 0, "relu": 1, "gelu": 2, "sine": 3}
+ACT_CODES = {"id": 0, "relu": 1, "gelu": 2, "sine": 3}  # csrc/fused_mlp.cu's activation kinds
 # the widths both kernels take: two 32-row activation buffers of the widest
 # layer (rounded up to 32) and one staged 32 x 128 weight chunk must fit
 # Hopper's per-block limit (shared_bytes)
@@ -321,7 +328,7 @@ def _chain(weights, biases, x, acts) -> List[int]:
     for l, (w, b, a) in enumerate(zip(weights, biases, acts)):
         build.check_tensor(f"weights[{l}]", w, (dims[l], dims[l + 1]), x.device)
         build.check_tensor(f"biases[{l}]", b, (dims[l + 1],), x.device)
-        if a[0] not in _ACT_CODES:
+        if a[0] not in ACT_CODES:
             raise ValueError(f"unknown activation {a!r}")
     build.check_tensor("x", x, (x.shape[0], dims[0]), x.device)
     if shared_bytes(dims) > _MAX_SHARED_BYTES:
@@ -333,7 +340,7 @@ def _chain(weights, biases, x, acts) -> List[int]:
 def _layer_arrays(dims, acts, weights, biases):
     n = len(weights)
     return ((ctypes.c_int32 * (n + 1))(*dims),
-            (ctypes.c_int32 * n)(*(_ACT_CODES[a[0]] for a in acts)),
+            (ctypes.c_int32 * n)(*(ACT_CODES[a[0]] for a in acts)),
             (ctypes.c_float * n)(*(float(a[1]) if a[0] == "sine" else 0.0 for a in acts)),
             (ctypes.c_void_p * n)(*(w.data_ptr() for w in weights)),
             (ctypes.c_void_p * n)(*(b.data_ptr() for b in biases)))
@@ -372,12 +379,14 @@ def _forward_kernel(weights, biases, x, acts) -> torch.Tensor:
     out = torch.empty((n, dims[-1]), dtype=torch.float32, device=x.device)
     lib = _library()
     plan = forward_plan(dims, acts, n, build.sm_count(x.device.index))
-    split = torch.empty((max(plan.split_words, 1), 4), dtype=torch.int32, device=x.device)
+    # the split weights' scratch; none where no layer takes the tensor cores (a relu stack), which the
+    # kernel's host side accepts (csrc/fused_mlp.cu:pack_forward)
+    split = torch.empty((plan.split_words, 4), dtype=torch.int32, device=x.device) if plan.split_words else None
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.fused_mlp_forward(x.data_ptr(), out.data_ptr(), n, len(weights),
                                     *_layer_arrays(dims, acts, weights, biases), forward_plan_words(plan),
-                                    split.data_ptr(), split.shape[0], stream)
+                                    None if split is None else split.data_ptr(), plan.split_words, stream)
     _raise_on(lib, "fused_mlp_forward", err)
     if n > 0:
         LAUNCHES["fused_mlp_forward"] += 1
@@ -410,22 +419,74 @@ def _backward_kernel(weights, biases, x, g, acts, need_dx):
     return dws, dbs, dx
 
 
+def act_words(acts: Sequence[Act]) -> Tuple[float, ...]:
+    """The ops' form of an activation stack: per layer its kind code
+    (:data:`ACT_CODES`) and its sine frequency (0.0 where the layer is not a
+    sine), in one float list (every list argument costs the dispatcher host
+    time: ``ops/library.py``). Cached; raises ValueError on an unknown
+    activation."""
+    try:
+        return _act_words(acts)
+    except TypeError:  # a list, unhashable
+        return _act_words(tuple(tuple(a) for a in acts))
+
+
+@functools.lru_cache(maxsize=1024)
+def _act_words(acts: Tuple[Act, ...]) -> Tuple[float, ...]:
+    for a in acts:
+        if a[0] not in ACT_CODES:
+            raise ValueError(f"unknown activation {a!r}")
+    return tuple(w for a in acts for w in (float(ACT_CODES[a[0]]), float(a[1]) if a[0] == "sine" else 0.0))
+
+
+@functools.lru_cache(maxsize=1024)
+def _acts_of(words: Tuple[float, ...]) -> Tuple[Act, ...]:
+    """:func:`act_words` undone."""
+    names = {code: name for name, code in ACT_CODES.items()}
+    kinds = [names[int(k)] for k in words[0::2]]
+    return tuple((k, w) if k == "sine" else (k,) for k, w in zip(kinds, words[1::2]))
+
+
 def mlp_forward(weights: Sequence[torch.Tensor], biases: Sequence[torch.Tensor], x: torch.Tensor,
                 acts: Sequence[Act]) -> torch.Tensor:
-    """The stack applied to x (B, K_0) -> (B, N_L). CUDA tensors launch the
-    forward kernel; CPU tensors take the plain version."""
-    if not x.is_cuda:
-        return mlp_forward_reference(weights, biases, x, acts)
-    return _forward_kernel(list(weights), list(biases), x, tuple(acts))
+    """The stack applied to x (B, K_0) -> (B, N_L), through the op
+    ``fused_mlp_forward`` (the layers as one list, w_0, b_0, w_1, b_1, ...):
+    CUDA tensors launch the forward kernel; CPU tensors take the plain
+    version."""
+    params = [t for pair in zip(weights, biases) for t in pair]
+    return torch.ops.mri_torch.fused_mlp_forward.default(x, params, act_words(acts))
+
+
+def _forward_cpu(x, params, acts) -> torch.Tensor:
+    return mlp_forward_reference(params[0::2], params[1::2], x, _acts_of(tuple(acts)))
+
+
+def _forward_cuda(x, params, acts) -> torch.Tensor:
+    return _forward_kernel(params[0::2], params[1::2], x, _acts_of(tuple(acts)))
 
 
 def mlp_backward(weights: Sequence[torch.Tensor], biases: Sequence[torch.Tensor], x: torch.Tensor,
                  g: torch.Tensor, acts: Sequence[Act], need_dx: bool = False):
-    """(dW list, db list, dx or None) for upstream g (B, N_L). CUDA tensors
-    launch the backward kernels; CPU tensors take the plain version."""
-    if not (x.is_cuda or g.is_cuda):
-        return mlp_backward_reference(weights, biases, x, g, acts, need_dx)
-    return _backward_kernel(list(weights), list(biases), x, g, tuple(acts), need_dx)
+    """(dW list, db list, dx or None) for upstream g (B, N_L), through the op
+    ``fused_mlp_backward`` (one list: dW_0, db_0, dW_1, db_1, ..., then dx
+    where ``need_dx``): CUDA tensors launch the backward kernels; CPU tensors
+    take the plain version."""
+    params = [t for pair in zip(weights, biases) for t in pair]
+    grads = torch.ops.mri_torch.fused_mlp_backward.default(x, g, params, act_words(acts), need_dx)
+    n = len(params)
+    return grads[0:n:2], grads[1:n:2], (grads[n] if need_dx else None)
+
+
+def _flat_grads(dws, dbs, dx) -> List[torch.Tensor]:
+    return [*(t for pair in zip(dws, dbs) for t in pair), *(() if dx is None else (dx,))]
+
+
+def _backward_cpu(x, g, params, acts, need_dx) -> List[torch.Tensor]:
+    return _flat_grads(*mlp_backward_reference(params[0::2], params[1::2], x, g, _acts_of(tuple(acts)), need_dx))
+
+
+def _backward_cuda(x, g, params, acts, need_dx) -> List[torch.Tensor]:
+    return _flat_grads(*_backward_kernel(params[0::2], params[1::2], x, g, _acts_of(tuple(acts)), need_dx))
 
 
 class FusedMLP(torch.autograd.Function):
@@ -439,7 +500,7 @@ class FusedMLP(torch.autograd.Function):
         x = x.contiguous()
         ctx.acts = acts
         ctx.save_for_backward(x, *params)
-        return mlp_forward(params[0::2], params[1::2], x, acts)
+        return torch.ops.mri_torch.fused_mlp_forward.default(x, list(params), act_words(acts))
 
     @staticmethod
     def backward(ctx, g: torch.Tensor):

@@ -6,11 +6,14 @@ and of the coarse dense levels alone (``coarse_onehot_levels``,
 ``pallas_hash_encode_coarse``: kernels 3-4). The kernels are in
 ``csrc/hash_encode.cu`` (built by ``ops/build.py``, bound with ctypes).
 
-Dispatch: a CPU tensor goes to the plain PyTorch version
-(:func:`hash_encode_reference`, :func:`hash_encode_table_grad_reference`);
-a CUDA tensor goes to the kernel, or the wrapper raises. There is no
-fallback from the card to the plain version. Each wrapper adds one to its
-entry of :data:`LAUNCHES` per kernel launch, and nowhere else.
+Dispatch: each wrapper calls its op ``torch.ops.mri_torch.<name>``
+(``ops/library.py``), whose CPU impl is the plain PyTorch version
+(:func:`hash_encode_reference`, :func:`hash_encode_table_grad_reference`, ...)
+and whose CUDA impl launches the kernel or raises. There is no fallback from
+the card to the plain version. The CUDA impls add one to their entry of
+:data:`LAUNCHES` per kernel launch, and nowhere else. An op takes the
+geometry as ``HashGridEncoding.geometry_key()`` and rebuilds it with
+``HashGridEncoding.from_key`` (cached).
 
 The coordinates' gradient (:func:`hash_encode_coord_grad`, which the warp
 INR's warped points need) is plain torch on both devices, as JAX takes it
@@ -138,7 +141,13 @@ def _encode_levels(enc: HashGridEncoding, table: torch.Tensor, x: torch.Tensor, 
 def hash_encode_table_grad_reference(enc: HashGridEncoding, x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     """dL/dtable for upstream g (N, L*F): scatter-add g*w into a zeroed
     (total_size, F) table with ``index_add_``."""
-    ids, contrib = _scatter_terms(enc, x, g, range(enc.n_levels))
+    return _scatter_levels(enc, x, g, range(enc.n_levels))
+
+
+def _scatter_levels(enc: HashGridEncoding, x: torch.Tensor, g: torch.Tensor, levels) -> torch.Tensor:
+    """``index_add_`` of the terms g*w of ``levels`` into a zeroed fused
+    table; the rows of the other levels stay 0."""
+    ids, contrib = _scatter_terms(enc, x, g, levels)
     dtable = torch.zeros((enc.total_size, enc.n_features_per_level), dtype=g.dtype, device=g.device)
     return dtable.index_add_(0, ids, contrib)
 
@@ -226,11 +235,18 @@ def _launch(fn_name: str, a: torch.Tensor, b: torch.Tensor, out: torch.Tensor,
 
 
 def hash_encode_forward(enc: HashGridEncoding, table: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """Encode x (N, d) in [0, 1] -> (N, L*F) with the fused table (T, F).
-    CUDA tensors launch the forward kernel; CPU tensors take the plain
-    version."""
-    if not (x.is_cuda or table.is_cuda):
-        return hash_encode_reference(enc, table, x)
+    """Encode x (N, d) in [0, 1] -> (N, L*F) with the fused table (T, F),
+    through the op ``hash_encode_forward``: CUDA tensors launch the forward
+    kernel; CPU tensors take the plain version."""
+    return torch.ops.mri_torch.hash_encode_forward.default(table, x, enc.geometry_key())
+
+
+def _forward_cpu(table: torch.Tensor, x: torch.Tensor, geometry: List[int]) -> torch.Tensor:
+    return hash_encode_reference(HashGridEncoding.from_key(geometry), table, x)
+
+
+def _forward_cuda(table: torch.Tensor, x: torch.Tensor, geometry: List[int]) -> torch.Tensor:
+    enc = HashGridEncoding.from_key(geometry)
     n = x.shape[0]
     build.check_tensor("x", x, (n, enc.input_dim), table.device)
     build.check_tensor("table", table, (enc.total_size, enc.n_features_per_level), table.device)
@@ -241,17 +257,32 @@ def hash_encode_forward(enc: HashGridEncoding, table: torch.Tensor, x: torch.Ten
 
 
 def hash_encode_table_grad(enc: HashGridEncoding, x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
-    """dL/dtable (T, F) for upstream g (N, L*F). CUDA tensors launch the
-    table-gradient kernels after :func:`table_grad_plan` (one call, one
-    count); CPU tensors take the plain version."""
-    if not (x.is_cuda or g.is_cuda):
-        return hash_encode_table_grad_reference(enc, x, g)
+    """dL/dtable (T, F) for upstream g (N, L*F), through the op
+    ``hash_encode_table_grad``: CUDA tensors launch the table-gradient
+    kernels after :func:`table_grad_plan` (one call, one count); CPU tensors
+    take the plain version."""
+    return torch.ops.mri_torch.hash_encode_table_grad.default(x, g, enc.geometry_key())
+
+
+def _table_grad_cpu(x: torch.Tensor, g: torch.Tensor, geometry: List[int]) -> torch.Tensor:
+    return hash_encode_table_grad_reference(HashGridEncoding.from_key(geometry), x, g)
+
+
+@functools.lru_cache(maxsize=1024)
+def _table_grad_words(enc: HashGridEncoding, n: int) -> np.ndarray:
+    """:func:`plan_words` of :func:`table_grad_plan` for ``n`` points (cached:
+    ``enc`` is the one object of its key)."""
+    return plan_words(enc, table_grad_plan(enc, n))
+
+
+def _table_grad_cuda(x: torch.Tensor, g: torch.Tensor, geometry: List[int]) -> torch.Tensor:
+    enc = HashGridEncoding.from_key(geometry)
     n = x.shape[0]
     build.check_tensor("x", x, (n, enc.input_dim), g.device)
     build.check_tensor("g", g, (n, enc.output_dim), g.device)
     _check_geometry(enc)
     dtable = torch.zeros((enc.total_size, enc.n_features_per_level), dtype=torch.float32, device=g.device)
-    _launch("hash_encode_table_grad", x, g, dtable, enc, words=plan_words(enc, table_grad_plan(enc, n)))
+    _launch("hash_encode_table_grad", x, g, dtable, enc, words=_table_grad_words(enc, n))
     return dtable
 
 
@@ -451,22 +482,30 @@ def hash_encode_coarse_table_grad_reference(enc: HashGridEncoding, x: torch.Tens
                                             max_rows: int = ONEHOT_MAX_ROWS) -> torch.Tensor:
     """dL/dtable (T, F) for upstream g (N, n_coarse*F): ``index_add_`` of g*w
     into a zeroed fused table; rows outside the coarse levels stay 0."""
-    ids, contrib = _scatter_terms(enc, x, g, _coarse_levels(enc, max_rows))
-    dtable = torch.zeros((enc.total_size, enc.n_features_per_level), dtype=g.dtype, device=g.device)
-    return dtable.index_add_(0, ids, contrib)
+    return _scatter_levels(enc, x, g, _coarse_levels(enc, max_rows))
 
 
 def hash_encode_coarse_forward(enc: HashGridEncoding, table: torch.Tensor, x: torch.Tensor,
                                max_rows: int = ONEHOT_MAX_ROWS) -> torch.Tensor:
     """The coarse levels' features (N, n_coarse*F) in level order from the
-    fused table (T, F). CUDA tensors launch kernel 3; CPU tensors take the
+    fused table (T, F), through the op ``hash_encode_coarse_forward`` (its
+    levels as ``int[]``): CUDA tensors launch kernel 3; CPU tensors take the
     plain version. Raises ValueError when no level qualifies or when one
     level's rows alone exceed a block's shared memory: kernel 3 stages no
     rows, but it refuses the levels that kernel 4's accumulator refuses, so
     that ``hash_encode_coarse`` fails in its forward, not in its backward."""
-    if not (x.is_cuda or table.is_cuda):
-        return hash_encode_coarse_reference(enc, table, x, max_rows)
-    levels = _coarse_levels(enc, max_rows)
+    return torch.ops.mri_torch.hash_encode_coarse_forward.default(table, x, enc.geometry_key(),
+                                                                  _coarse_levels(enc, max_rows))
+
+
+def _coarse_forward_cpu(table: torch.Tensor, x: torch.Tensor, geometry: List[int],
+                        levels: List[int]) -> torch.Tensor:
+    return _encode_levels(HashGridEncoding.from_key(geometry), table, x, levels)
+
+
+def _coarse_forward_cuda(table: torch.Tensor, x: torch.Tensor, geometry: List[int],
+                         levels: List[int]) -> torch.Tensor:
+    enc = HashGridEncoding.from_key(geometry)
     n = x.shape[0]
     build.check_tensor("x", x, (n, enc.input_dim), table.device)
     build.check_tensor("table", table, (enc.total_size, enc.n_features_per_level), table.device)
@@ -479,12 +518,22 @@ def hash_encode_coarse_forward(enc: HashGridEncoding, table: torch.Tensor, x: to
 def hash_encode_coarse_table_grad(enc: HashGridEncoding, x: torch.Tensor, g: torch.Tensor,
                                   max_rows: int = ONEHOT_MAX_ROWS) -> torch.Tensor:
     """dL/dtable (T, F) of the fused table for upstream g (N, n_coarse*F),
-    zero outside the coarse levels. CUDA tensors launch kernel 4 after
+    zero outside the coarse levels, through the op
+    ``hash_encode_coarse_table_grad``: CUDA tensors launch kernel 4 after
     :func:`coarse_grad_plan` for the card; CPU tensors take the plain
     version."""
-    if not (x.is_cuda or g.is_cuda):
-        return hash_encode_coarse_table_grad_reference(enc, x, g, max_rows)
-    levels = _coarse_levels(enc, max_rows)
+    return torch.ops.mri_torch.hash_encode_coarse_table_grad.default(x, g, enc.geometry_key(),
+                                                                     _coarse_levels(enc, max_rows))
+
+
+def _coarse_table_grad_cpu(x: torch.Tensor, g: torch.Tensor, geometry: List[int],
+                           levels: List[int]) -> torch.Tensor:
+    return _scatter_levels(HashGridEncoding.from_key(geometry), x, g, levels)
+
+
+def _coarse_table_grad_cuda(x: torch.Tensor, g: torch.Tensor, geometry: List[int],
+                            levels: List[int]) -> torch.Tensor:
+    enc = HashGridEncoding.from_key(geometry)
     n = x.shape[0]
     build.check_tensor("x", x, (n, enc.input_dim), g.device)
     build.check_tensor("g", g, (n, len(levels) * enc.n_features_per_level), g.device)

@@ -770,3 +770,60 @@ def test_encode_forward_unaligned_table(f, cuda_device):
     shifted.copy_(table)
     assert shifted.data_ptr() % 8 != 0
     assert torch.equal(he.hash_encode_forward(enc, shifted, x), he.hash_encode_forward(enc, table, x))
+
+
+# ---------------------------------------------------------------------------
+# the dispatcher ops (ops/library.py) and a served artifact, on the card
+
+OPS = ("hash_encode_forward", "hash_encode_table_grad", "hash_encode_coarse_forward",
+       "hash_encode_coarse_table_grad", "fused_mlp_forward", "fused_mlp_backward")
+
+
+def _op_args(name, device):
+    """The op ``name`` and its arguments at small sizes on ``device``: the d2
+    geometry (every level coarse) at 300 points, the siren_w0s stack."""
+    enc, x, table, g = _inputs(CONFIGS["d2"], 300, device)
+    key = list(enc.geometry_key())
+    levels = he.coarse_onehot_levels(enc)
+    ws, bs, mx, mg, acts = _stack("siren_w0s", device)
+    params = [t for pair in zip(ws, bs) for t in pair]
+    words = list(fm.act_words(acts))
+    args = {
+        "hash_encode_forward": (table, x, key),
+        "hash_encode_table_grad": (x, g, key),
+        "hash_encode_coarse_forward": (table, x, key, levels),
+        "hash_encode_coarse_table_grad": (x, g[:, :len(levels) * enc.n_features_per_level].contiguous(), key, levels),
+        "fused_mlp_forward": (mx, params, words),
+        "fused_mlp_backward": (mx, mg, params, words, True),
+    }[name]
+    return getattr(torch.ops.mri_torch, name).default, args
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", OPS)
+def test_op_schema_and_fake_impl_on_card(name, cuda_device):
+    """Each op's CUDA impl against its schema (no input mutated or aliased)
+    and its fake impl (the same output shapes, dtypes and devices)."""
+    op, args = _op_args(name, cuda_device)
+    torch.library.opcheck(op, args, test_utils=("test_schema", "test_faketensor"))
+
+
+@pytest.mark.gpu
+def test_exported_flagship_evaluator_on_card(cuda_device, tmp_path):
+    """A flagship-shaped HashMLP (4 dense levels x F = 1, BatchNorm decoder)
+    served from its ``.pt2`` on the card: equal to ``evaluate_grid``'s
+    per-chunk route (kernel 1 a chunk) to 1e-6, kernel 1 launched once a
+    chunk."""
+    from mri_interpolation_tpu_torch.infer import evaluate_grid, load_evaluator, save_evaluator
+
+    model = make_hash_mlp(3, base_resolution=(4, 4, 2), finest_resolution=(24, 24, 8), dim_hidden=16,
+                          device=cuda_device)
+    shape, chunk = (20, 18, 9), 1024
+    ref = evaluate_grid(model, shape, chunk_size=chunk, device=cuda_device, transform=lambda x: x)
+    path = save_evaluator(str(tmp_path / "flagship.pt2"), model, shape, chunk_size=chunk)
+    serve = load_evaluator(path)
+    he.reset_launches()
+    vol = serve()
+    assert he.LAUNCHES == {**ZERO, "hash_encode_forward": -(-int(np.prod(shape)) // chunk)}
+    assert vol.shape == shape
+    np.testing.assert_allclose(vol, ref, rtol=0, atol=1e-6)

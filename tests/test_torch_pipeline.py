@@ -121,15 +121,25 @@ def test_ssim_of_identical_images_is_one():
         metrics.ssim(x[:5], x[:5])
 
 
-def test_io_matches_jax(tmp_path):
+@pytest.mark.parametrize("use_native", [True, False])
+def test_io_matches_jax(tmp_path, monkeypatch, use_native):
+    """The port's loader against the JAX package's, bitwise: a whole volume
+    through both native codecs (the JAX one built into this test's own
+    directory, so that no other test's build of it races this one) or both
+    numpy readers; a slice through numpy."""
+    from mri_interpolation_tpu import native as jax_native
+
+    monkeypatch.setattr(jax_native, "_lib", None)
+    monkeypatch.setattr(jax_native, "_LIB_PATH", str(tmp_path / "libmit_native.so"))
+    jax_native.build()
     vol = io.synthetic_volume((9, 8, 5), seed=4)
     np.testing.assert_array_equal(vol, jio.synthetic_volume((9, 8, 5), seed=4))
     np.testing.assert_array_equal(io.make_mgrid((4, 3), lo=-1.0), jio.make_mgrid((4, 3), lo=-1.0))
     assert io.nifti.nifti_bytes(vol, pixdim=(0.5, 0.5, 2.0)) == jio.nifti.nifti_bytes(vol, pixdim=(0.5, 0.5, 2.0))
     path = str(tmp_path / "v.nii.gz")
     jio.nifti.save(vol, path, pixdim=(0.5, 0.5, 2.0))
-    ds = io.load_volume(path)
-    jds = jio.load_volume(path, use_native=False)
+    ds = io.load_volume(path, use_native=use_native)
+    jds = jio.load_volume(path, use_native=use_native)
     np.testing.assert_array_equal(ds.coords, jds.coords)
     np.testing.assert_array_equal(ds.values, jds.values)
     assert ds.shape == jds.shape and ds.pixdim == pytest.approx(jds.pixdim)

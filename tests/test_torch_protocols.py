@@ -17,10 +17,11 @@ Tolerances and their reasons:
 
 - training coordinates: bitwise (the same numpy operations in the same
   order) for the even frames; the undersampled rows and the training
-  values bitwise against the JAX package's numpy loader, and within an ulp
-  (6e-8) of what the JAX launcher trains on: it loads a whole volume through
-  its native C++ reader, whose grid and normalisation round in another
-  order;
+  values bitwise against what the JAX launcher trains on, both launchers
+  loading the volume through their native C++ codecs (the same source and
+  flags) or both through numpy (the ``loader`` cases); the native load
+  within an ulp (6e-8) of JAX's numpy loader, whose grid and normalisation
+  round in another order;
 - PSNR within 0.05 dB and SSIM within 5e-3, the full volume's and the odd
   frames' (``test_torch_pipeline.py``'s bounds for two fits from one init);
 - latents: atol 1e-5 (a fit's table held through the same steps; the
@@ -30,6 +31,7 @@ Tolerances and their reasons:
   ``pct / 100``.
 """
 
+import functools
 import json
 import os
 
@@ -107,10 +109,32 @@ def fit_inputs(monkeypatch):
     return seen
 
 
-def _assert_within_an_ulp(port, jax_launcher, numpy_loader):
-    """Bitwise equal to the JAX numpy loader's, within an ulp of the JAX launcher's."""
-    np.testing.assert_array_equal(port, numpy_loader)
-    np.testing.assert_allclose(port, jax_launcher, rtol=0, atol=6e-8)
+@pytest.fixture(params=["native", "numpy"])
+def loader(request, monkeypatch, tmp_path_factory):
+    """How both launchers load a whole volume: through their native codecs
+    (JAX's built into a directory of this test's own, so that no other
+    test's build of it races this one) or through numpy (JAX's codec hidden,
+    the port's ``load_volume`` called with ``use_native=False``)."""
+    from mri_interpolation_tpu import native as jax_native
+    from mri_interpolation_tpu_torch import io as port_io
+
+    monkeypatch.setattr(jax_native, "_lib", None)
+    monkeypatch.setattr(jax_native, "_LIB_PATH", str(tmp_path_factory.mktemp("jax_native") / "libmit_native.so"))
+    if request.param == "native":
+        jax_native.build()
+        assert jax_native.available()
+    else:
+        monkeypatch.setattr(port_io, "load_volume", functools.partial(port_io.load_volume, use_native=False))
+        assert not jax_native.available()
+    return request.param
+
+
+def _assert_loaded_alike(port, jax_launcher, numpy_loader, loader):
+    """Bitwise equal to the JAX launcher's; equal to the JAX numpy loader's
+    where both load through numpy, within an ulp of it where they load
+    through their codecs."""
+    np.testing.assert_array_equal(port, jax_launcher)
+    np.testing.assert_allclose(port, numpy_loader, rtol=0, atol=6e-8 if loader == "native" else 0.0)
 
 
 def _jax_numpy_dataset(volume):
@@ -131,7 +155,7 @@ def _both_launchers(tmp_path, volume, run, jax_ckpt, port_ckpt):
     return want, got
 
 
-def test_even_frames_and_latents_match_the_jax_launcher(volume, tmp_path, fit_inputs):
+def test_even_frames_and_latents_match_the_jax_launcher(volume, tmp_path, fit_inputs, loader):
     """The temporal protocol's HashMLP (relu_plain, F=4, paper growth,
     temporal TV, adam_tcnn, cosine, weight decay) trained on the 4 even
     frames of (16, 16, 8) by both launchers from one init, 20 one-batch
@@ -145,7 +169,7 @@ def test_even_frames_and_latents_match_the_jax_launcher(volume, tmp_path, fit_in
     (jc, jv), (pc, pv) = fit_inputs["jax"][0], fit_inputs["port"][0]
     assert pc.dtype == np.float32 and pc.shape == (1024, 3)
     np.testing.assert_array_equal(pc, jc)
-    _assert_within_an_ulp(pv, jv, _jax_numpy_dataset(volume).image()[..., ::2].reshape(-1, 1))
+    _assert_loaded_alike(pv, jv, _jax_numpy_dataset(volume).image()[..., ::2].reshape(-1, 1), loader)
     # even frame k at frame 2k of the whole volume: t = 2k / 7
     np.testing.assert_allclose(np.unique(pc[:, -1]), np.arange(4) * 2 / 7, rtol=0, atol=1e-7)
     for key in ("odd_psnr", "odd_ssim", "odd_mse"):
@@ -177,7 +201,7 @@ def test_even_frame_training_set_matches_jax_numpy():
             assert coords[:, -1].max() <= 1.0 and coords[:, -1].min() == lo
 
 
-def test_undersampling_with_jax_mask_matches_the_jax_launcher(volume, tmp_path, fit_inputs, monkeypatch):
+def test_undersampling_with_jax_mask_matches_the_jax_launcher(volume, tmp_path, fit_inputs, monkeypatch, loader):
     """``undersample_pct 10`` with the port given JAX's kept indices: the same
     training rows, then PSNR and SSIM of the whole reconstruction."""
     kw = {k: v for k, v in PROTOCOL.items() if k != "temporal_tv"}
@@ -198,8 +222,8 @@ def test_undersampling_with_jax_mask_matches_the_jax_launcher(volume, tmp_path, 
     assert asked == [((n,), 10.0, 1337)]
     (jc, jv), (pc, pv) = fit_inputs["jax"][0], fit_inputs["port"][0]
     jds = _jax_numpy_dataset(volume)
-    _assert_within_an_ulp(pc, jc, jds.coords[jkept])
-    _assert_within_an_ulp(pv, jv, jds.values[jkept])
+    _assert_loaded_alike(pc, jc, jds.coords[jkept], loader)
+    _assert_loaded_alike(pv, jv, jds.values[jkept], loader)
     assert got["train_voxels"] == len(jkept) and 0.05 * n < len(jkept) < 0.15 * n
 
 
