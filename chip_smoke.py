@@ -162,6 +162,38 @@ Phases, each printed with its time as it ends:
      serving bytes and bf16 saving more than 0.4 x the table's; export,
      write and load seconds, each artifact's grid wall beside
      ``evaluate_grid``'s, the sizes;
+   - parallel (after the export; its wall time printed): (a) ``launcher.run``
+     with ``data_parallel`` and with ``shard_tables`` plus
+     ``stream_shard_voxels`` at world size 1, whose launches are the
+     flagship's and the streamed fit's (185 and 370 steps); (b) an NCCL
+     group of one on ``cuda:0``: ``DataParallelTrainer.fit`` and
+     ``fit_streaming`` of the flagship on (a)'s data from (a)'s initial
+     model, against (a)'s ``Trainer`` fits: the first 10 losses (rtol 1e-4,
+     from their scalars) and steps/s; ``Trainer.fit`` and the DP fit
+     alternating in one process (T D D T, twice), each reading's steps/s;
+     the first collective's set-up, the
+     host and device time of the step's one ``all_reduce`` at its size,
+     ``evaluate_grid_sharded`` on (352, 352, 30) against ``evaluate_grid``
+     (atol 1e-5); (c) two ranks sharing the card over gloo (NCCL refuses
+     two ranks on one GPU; gloo moves the CUDA tensors through the host, so
+     its times are not a scaling number): path B's model data-parallel on
+     100,000 rows (first 10 losses against world size 1, rtol 1e-4) and its
+     grid by ``evaluate_grid_sharded``; ``scripts/validate_sharded_4d.py``'s
+     4-D F = 8 table (14,544,970 rows, 465 MB): the plan (its finest dense
+     level split, each rank within 1.25x its share), the sharded encode
+     against kernel 1 at N = 131,072 on a U(-0.5, 0.5) table (2e-6 of the
+     largest value), the
+     unsharded table gradient against kernel 2 (the per-entry bound), kernel
+     6 twice on one input (its atomics' bits), 16 ``ShardedHashTrainer``
+     steps at batch 4096 on rows of a synthetic (88, 88, 6, 15) volume
+     (finite, decreasing), the decoder bit-equal across the ranks, the
+     model's table on the host after the fit, and
+     ``evaluate_grid_sharded_table`` on (352, 352, 6, 15) in 86 chunks of
+     2^17 from the trainer's shard against ``evaluate_grid`` (atol 1e-5);
+     each rank's peak allocation over the fit and that grid below the
+     table's bytes plus 4 x its shard's (the shard, its gradient and Adam's
+     two moments: a rank never holds the table besides them); the ranks' launches
+     reported back and counted by path;
 6. profile: device time by kernel over 20 training steps of each path (one
    epoch of 15 frames for the multi-frame models) and one grid evaluation
    of the flagship, paths A and B, ngp, protocol_tv, hash_siren and
@@ -2653,6 +2685,330 @@ def check_native_load(paths: dict, volumes) -> None:
             f"{errs['values']:.3e} (limit 2^-23 = {2.0**-23:.3e})")
 
 
+# the parallel phase: the flagship at world size 1 in an NCCL group of one; two ranks sharing the card over gloo
+# (NCCL refuses two ranks on one GPU): path B's model by data parallelism, and the table-sharded trainer at
+# scripts/validate_sharded_4d.py's 4-D F = 8 table (14,544,970 dense rows x 8 = 465 MB, its finest level split)
+PARALLEL_B = dict(n_levels=16, n_features_per_level=2, log2_hashmap_size=19, base_resolution=16,
+                  finest_resolution=None, per_level_scale=1.4, dim_hidden=128, n_layers=2, decoder="relu_plain")
+PARALLEL_B_ROWS = 100_000  # 10 steps of batch 10,000
+SHARDED_4D = dict(n_levels=4, n_features_per_level=8, log2_hashmap_size=24, base_resolution=(64, 64, 2, 5),
+                  finest_resolution=(352, 352, 6, 15), growth="paper", dim_hidden=64, n_layers=2,
+                  decoder="relu_plain")
+SHARDED_N = 131_072  # the sharded encode and gradient checks' points
+SHARDED_STEPS, SHARDED_BATCH = 16, 4096
+SHARDED_DATA = (88, 88, 6, 15)  # the sharded fit's 65,536 rows are drawn from this synthetic volume's
+SHARDED_CHUNK = 1 << 17
+SHARDED_CHUNKS = -(-352 * 352 * 6 * 15 // SHARDED_CHUNK)  # 86: evaluate_grid_sharded_table's chunks
+
+
+def _sync_counts(torch):
+    torch.cuda.synchronize()
+    return read_counts()
+
+
+def gloo_rank(b_coords, b_values, s_coords, s_values):
+    """One of two ranks sharing ``cuda:0`` in a gloo group (run by
+    ``RankPool``): path B's model fitted data-parallel on ``b_coords`` and
+    its grid by ``evaluate_grid_sharded``; the 4-D F = 8 table's plan, its
+    sharded encode and table gradient against kernels 1 and 2, 16 steps of
+    ``ShardedHashTrainer``, the decoder's bits on both ranks, and
+    ``evaluate_grid_sharded_table`` on (352, 352, 6, 15). Each path's launches
+    are counted from 0; the checks' own launches are not. Returns the
+    numbers and the failures (a rank does not exit: its peer would wait in a
+    collective)."""
+    import torch
+    import torch.distributed as dist
+    from mri_interpolation_tpu_torch.infer import evaluate_grid
+    from mri_interpolation_tpu_torch.models import make_hash_mlp
+    from mri_interpolation_tpu_torch.ops import hash_encode as he
+    from mri_interpolation_tpu_torch.parallel import (DataParallelTrainer, ShardedHashTrainer, evaluate_grid_sharded,
+                                                      evaluate_grid_sharded_table, make_mesh, plan_table_sharding,
+                                                      sharded_encode_apply)
+    from mri_interpolation_tpu_torch.parallel.mesh import all_gather
+    from mri_interpolation_tpu_torch.parallel.sharded_table import _rank_rows, _table_of
+    from mri_interpolation_tpu_torch.train import TrainConfig
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = make_mesh(device="cuda:0")
+    out, errors, launches, seconds = {"rank": mesh.rank, "backend": dist.get_backend()}, [], {}, {}
+
+    def path(name, fn):
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        result = fn()
+        launches[name] = _sync_counts(torch)
+        seconds[name] = time.perf_counter() - t0
+        return result
+
+    # path B's model, data-parallel: 5,000 rows a rank a step
+    model = make_hash_mlp(3, **PARALLEL_B)
+    res = path("parallel_gloo_dp_B", lambda: DataParallelTrainer(
+        TrainConfig(lr=1e-2, optimizer="adam_tcnn"), mesh=mesh).fit(model, b_coords, b_values))
+    out["dp_B"] = {"losses": res.losses.tolist(), "steps_per_s": res.steps_per_sec}
+    vol = path("parallel_gloo_grid", lambda: evaluate_grid_sharded(model, GRID, mesh=mesh))
+    if mesh.rank == 0:  # against kernel 1 per chunk, this rank alone
+        out["grid_err"] = float(np.abs(vol - evaluate_grid(model, GRID, transform=lambda x: x)).max())
+        if not out["grid_err"] <= 1e-5:
+            errors.append(f"evaluate_grid_sharded against evaluate_grid: max abs diff {out['grid_err']} > 1e-5")
+    del model
+
+    # the 4-D F = 8 table
+    model = make_hash_mlp(4, **SHARDED_4D)
+    enc = model.encoder.geometry
+    plan = plan_table_sharding(enc, mesh.world_size)
+    loads = [sum(length for _, _, length in s) for s in plan.slots]
+    split = sorted({l for s in plan.slots for l, start, length in s if length and start and enc.level_dense[l]})
+    out["plan"] = {"rows": enc.total_size, "table_bytes": enc.total_size * enc.n_features_per_level * 4,
+                   "loads": loads, "split_dense_levels": split, "max_over_fair": max(loads) / (enc.total_size / 2)}
+    if not split or out["plan"]["max_over_fair"] > 1.25:
+        errors.append(f"the 4-D plan splits dense levels {split}, its largest load is "
+                      f"{out['plan']['max_over_fair']:.3f} x the fair share (limit 1.25)")
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    table = torch.rand(model.encoder.table.shape, generator=gen, device="cuda") - 0.5  # a trained table's scale
+    x = torch.rand((SHARDED_N, 4), generator=gen, device="cuda")
+    g = torch.randn((SHARDED_N, enc.output_dim), generator=gen, device="cuda")
+    shard = _rank_rows(table, enc, plan, mesh.rank).requires_grad_(True)
+    t0 = time.perf_counter()
+    feats = sharded_encode_apply(enc, plan, mesh, shard, x)
+    torch.sum(feats * g).backward()
+    grad = _table_of(all_gather(mesh, shard.grad), enc, plan)
+    torch.cuda.synchronize()
+    out["encode_grad_s"] = time.perf_counter() - t0
+    ref = he.hash_encode_forward(enc, table, x)  # kernel 1 on the single table
+    out["encode_err"] = float((feats.detach() - ref).abs().max())
+    out["encode_scale"] = float(ref.abs().max())
+    if not out["encode_err"] <= 2e-6 * out["encode_scale"]:
+        errors.append(f"sharded encode against kernel 1: max abs diff {out['encode_err']} > 2e-6 x "
+                      f"{out['encode_scale']}")
+    ref_grad = he.hash_encode_table_grad(enc, x, g)  # kernel 2 on the single table
+    bound = he.atomic_sum_bound(he.table_grad_abs_sum(enc, x, g))
+    excess = (grad - ref_grad).abs() - bound
+    out["grad_err"] = float((grad - ref_grad).abs().max())
+    out["grad_worst_excess"] = float(excess.max())
+    if out["grad_worst_excess"] > 0:
+        errors.append(f"sharded table gradient against kernel 2: {int((excess > 0).sum())} entries past the "
+                      f"per-entry bound, worst by {out['grad_worst_excess']}")
+    del table, shard, feats, grad, ref, ref_grad, bound, excess, x, g
+
+    # kernel 6 twice on the same inputs: are the decoder's gradient bits reproducible?
+    z = torch.rand((SHARDED_BATCH, enc.output_dim), generator=gen, device="cuda")
+    bits = []
+    for _ in range(2):
+        model.zero_grad(set_to_none=True)
+        model.decode(z).square().sum().backward()
+        bits.append(torch.cat([p.grad.reshape(-1) for p in model.layers.parameters()]))
+    out["kernel6_repeat_bitwise_equal"] = bool(torch.equal(bits[0], bits[1]))
+    out["kernel6_repeat_max_diff"] = float((bits[0] - bits[1]).abs().max())
+    model.zero_grad(set_to_none=True)
+    del z, bits
+
+    # from here to the sharded grid, a rank's card must never hold the table on top of its shard's training state
+    torch.cuda.synchronize()
+    out["checks_peak_bytes"] = torch.cuda.max_memory_allocated()  # the checks hold the single table for kernels 1-2
+    torch.cuda.reset_peak_memory_stats()
+    trainer = ShardedHashTrainer(TrainConfig(batch_size=SHARDED_BATCH, lr=1e-2, optimizer="adam_tcnn"), mesh=mesh)
+    res = path("parallel_gloo_sharded_fit", lambda: trainer.fit(model, s_coords, s_values))
+    losses = res.losses
+    out["sharded_fit"] = {"losses": losses.tolist(), "steps_per_s": res.steps_per_sec}
+    if len(losses) != SHARDED_STEPS or not np.all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        errors.append(f"ShardedHashTrainer: {len(losses)} losses {losses.tolist()}: not {SHARDED_STEPS} finite and "
+                      "decreasing")
+    decoder = torch.cat([t.reshape(-1) for k, t in model.state_dict().items() if k != "encoder.table"])
+    both = all_gather(mesh, decoder)
+    out["decoder_bitwise_equal"] = bool(torch.equal(both[0], both[1]))
+    if not out["decoder_bitwise_equal"]:
+        errors.append("the decoder's parameters differ between the ranks after the sharded fit")
+
+    vol = path("parallel_gloo_sharded_grid", lambda: evaluate_grid_sharded_table(
+        model, trainer.plan, mesh, trainer.shard, FULL4D_VOLUME, chunk_size=SHARDED_CHUNK))
+    shard_bytes = plan.local_rows * enc.n_features_per_level * 4
+    limit = out["plan"]["table_bytes"] + 4 * shard_bytes  # the table, besides the shard, its gradient and Adam's two
+    out["sharded_peak"] = {"bytes": torch.cuda.max_memory_allocated(), "limit": limit, "shard_bytes": shard_bytes}
+    if not out["sharded_peak"]["bytes"] < limit:
+        errors.append(f"the sharded fit and grid peaked at {out['sharded_peak']['bytes']:,d} bytes allocated a rank, "
+                      f"not below the table's {out['plan']['table_bytes']:,d} plus 4 x the shard's {shard_bytes:,d}")
+    if model.encoder.table.device.type != "cpu":
+        errors.append(f"after the sharded fit the model's table is on {model.encoder.table.device}, not the host")
+    if mesh.rank == 0:
+        want = evaluate_grid(model.to("cuda"), FULL4D_VOLUME)  # the unsharded parameters, the separable route
+        out["sharded_grid_err"] = float(np.abs(vol - want).max())
+        if not out["sharded_grid_err"] <= 1e-5:
+            errors.append(f"evaluate_grid_sharded_table against evaluate_grid: max abs diff "
+                          f"{out['sharded_grid_err']} > 1e-5")
+    out.update(errors=errors, launches=launches, seconds=seconds)
+    return out
+
+
+def drive_parallel(torch, path: str, tmp: str, zero: dict, paths: dict) -> None:
+    """The parallel layer on one card, each path with the counters at 0
+    just before it and read just after: (a) ``launcher.run`` with
+    ``data_parallel`` and with ``shard_tables`` plus streaming at world size
+    1, which fall through to the flagship's and the streamed fit's launches;
+    (b) an NCCL group of one on ``cuda:0``: ``DataParallelTrainer.fit`` and
+    ``fit_streaming`` of the flagship from (a)'s data and initial model,
+    against (a)'s ``Trainer`` fits (first 10 losses from their scalars,
+    rtol 1e-4; steps/s), the host and device time of the step's
+    ``all_reduce`` at its size, ``evaluate_grid_sharded`` against
+    ``evaluate_grid`` (1e-5), path B's model at world size 1 on 100,000 rows;
+    (c) two ranks sharing the card over gloo (:func:`gloo_rank`), B's first
+    10 losses against (b)'s."""
+    import torch.distributed as dist
+    from mri_interpolation_tpu_torch import launcher
+    from mri_interpolation_tpu_torch.configs import RunConfig
+    from mri_interpolation_tpu_torch.infer import evaluate_grid
+    from mri_interpolation_tpu_torch.io import dataset_from_array, load_volume, synthetic_volume
+    from mri_interpolation_tpu_torch.models import make_hash_mlp
+    from mri_interpolation_tpu_torch.parallel import DataParallelTrainer, RankPool, evaluate_grid_sharded, make_mesh
+    from mri_interpolation_tpu_torch.train import TrainConfig, Trainer, read_scalars
+
+    flagship = {**zero, "hash_encode_forward": 185, "hash_encode_table_grad": 185, "probe": 1}
+    # (a) the launcher at world size 1
+    paths["parallel_launcher_dp"] = drive_path(
+        "parallel", "launcher.run data_parallel=True, world size 1",
+        lambda: launcher.run(RunConfig(image_path=path, output_root=os.path.join(tmp, "par_dp"), epochs=1,
+                                       interp_shapes=(GRID,), data_parallel=True)), 185, 10_000, flagship)
+    paths["parallel_launcher_shard_stream"] = drive_path(
+        "parallel", "launcher.run shard_tables=True + stream_shard_voxels, world size 1",
+        lambda: launcher.run(RunConfig(image_path=path, output_root=os.path.join(tmp, "par_st"), epochs=1,
+                                       interp_shapes=(GRID,), shard_tables=True, stream_shard_voxels=STREAM_SHARD)),
+        370, 10_000, {**zero, "hash_encode_forward": 370, "hash_encode_table_grad": 370, "probe": 1})
+
+    # (b) an NCCL group of one, on (a)'s data and initial model (the launcher's seed), held to (a)'s fits: Trainer.fit
+    # and Trainer.fit_streaming, whose losses are in their scalars
+    t_b = time.perf_counter()
+    seed = RunConfig().seed
+    ref, ref_s = ({"losses": np.array([r["value"] for r in read_scalars(
+        os.path.join(paths[name]["run_dir"], "scalars.jsonl"), "train_loss")]), "steps_per_s": paths[name]["steps_per_s"]}
+        for name in ("parallel_launcher_dp", "parallel_launcher_shard_stream"))
+    ds = load_volume(path)
+    img = ds.image()
+    rows = np.random.default_rng(3).permutation(len(ds.coords))[:PARALLEL_B_ROWS]
+    b_coords, b_values = ds.coords[rows], ds.values[rows]
+    dist.init_process_group("nccl", init_method=f"file://{os.path.join(tmp, 'nccl_store')}", world_size=1, rank=0)
+    try:
+        mesh = make_mesh(device="cuda:0")
+        out = {"backend": dist.get_backend()}
+        t0 = time.perf_counter()
+        dist.all_reduce(torch.zeros(1, device="cuda"))  # NCCL makes its communicator at the first collective
+        torch.cuda.synchronize()
+        out["first_collective_s"] = time.perf_counter() - t0
+        cfg = TrainConfig(epochs=1, seed=seed)
+        model = make_hash_mlp(3, seed=seed)
+        res, seconds, launches = counted(
+            lambda: DataParallelTrainer(cfg, mesh=mesh).fit(model, ds.coords, ds.values))
+        rel = curves_match("DataParallelTrainer.fit (NCCL, world size 1)", res.losses[:10], ref["losses"][:10])
+        want = {**zero, "hash_encode_forward": 185, "hash_encode_table_grad": 185}
+        if launches != want or res.steps != 185:
+            fail(f"parallel nccl fit: {res.steps} steps, launches {launches}; expected 185, {want}")
+        out["fit"] = {"steps_per_s": res.steps_per_sec, "trainer_steps_per_s": ref["steps_per_s"], "rel": rel,
+                      "wall_s": seconds}
+        paths["parallel_nccl_fit"] = {"launches": launches}
+        # the one-process fit against the same fit through the group of one, alternating in this process
+        # (T D D T, twice; launches outside every path's count)
+        rates = {"trainer": [], "dp": []}
+        for who in ("trainer", "dp", "dp", "trainer") * 2:
+            fitter = Trainer(cfg) if who == "trainer" else DataParallelTrainer(cfg, mesh=mesh)
+            kw = {"device": "cuda"} if who == "trainer" else {}
+            rates[who].append(fitter.fit(make_hash_mlp(3, seed=seed), ds.coords, ds.values, **kw).steps_per_sec)
+        apart = max(rates["dp"]) < min(rates["trainer"]) or min(rates["dp"]) > max(rates["trainer"])
+        out["paired"] = {**rates, "dp_over_trainer": float(np.median(rates["dp"]) / np.median(rates["trainer"])),
+                         "resolved": apart}
+        numel = sum(p.numel() for p in model.parameters()) + sum(
+            b.numel() for b in model.buffers() if b.is_floating_point()) + 1
+        buf = torch.zeros(numel, device="cuda")
+        host = []
+        for _ in range(210):
+            t0 = time.perf_counter()
+            dist.all_reduce(buf)
+            host.append(time.perf_counter() - t0)
+        torch.cuda.synchronize()
+        out["all_reduce"] = {"floats": numel, "host_us": float(np.median(host[10:]) * 1e6),
+                             "device_us": time_ms(lambda: dist.all_reduce(buf), iters=200) * 1e3}
+        res, seconds, launches = counted(lambda: DataParallelTrainer(cfg, mesh=mesh).fit_streaming(
+            make_hash_mlp(3, seed=seed), img, shard_voxels=STREAM_SHARD, value_range=False))
+        rel_s = curves_match("DataParallelTrainer.fit_streaming (NCCL, world size 1)", res.losses[:10],
+                             ref_s["losses"][:10])
+        want = {**zero, "hash_encode_forward": 370, "hash_encode_table_grad": 370}
+        if launches != want:
+            fail(f"parallel nccl fit_streaming: launches {launches}; expected {want}")
+        out["stream"] = {"steps_per_s": res.steps_per_sec, "trainer_steps_per_s": ref_s["steps_per_s"], "rel": rel_s}
+        paths["parallel_nccl_stream"] = {"launches": launches}
+        vol, seconds, launches = counted(lambda: evaluate_grid_sharded(model, GRID, mesh=mesh))
+        err = float(np.abs(vol - evaluate_grid(model, GRID, transform=lambda x: x)).max())
+        sep = float(np.abs(vol - evaluate_grid(model, GRID)).max())
+        if not err <= 1e-5 or launches != {**zero, "hash_encode_forward": GRID_CHUNKS}:
+            fail(f"parallel nccl evaluate_grid_sharded: max abs diff {err} (atol 1e-5), launches {launches}")
+        out["grid"] = {"err": err, "separable_err": sep, "s": seconds}
+        paths["parallel_nccl_grid"] = {"launches": launches}
+        b_ref = DataParallelTrainer(TrainConfig(lr=1e-2, optimizer="adam_tcnn"), mesh=mesh).fit(
+            make_hash_mlp(3, **PARALLEL_B), b_coords, b_values).losses  # (c)'s reference
+    finally:
+        dist.destroy_process_group()
+    log(f"[parallel] NCCL group of one in {time.perf_counter() - t_b:.1f} s: first all_reduce (the communicator's "
+        f"set-up) {out['first_collective_s']:.3f} s; "
+        f"DataParallelTrainer.fit {out['fit']['steps_per_s']:.1f} steps/s beside "
+        f"Trainer.fit's {out['fit']['trainer_steps_per_s']:.1f} in (a), first 10 losses max rel diff {rel:.3e}; "
+        f"alternating in this process, Trainer.fit {[round(r, 1) for r in rates['trainer']]} and "
+        f"DataParallelTrainer.fit {[round(r, 1) for r in rates['dp']]} steps/s (medians' ratio "
+        f"{out['paired']['dp_over_trainer']:.3f}, resolved beyond the spread: {out['paired']['resolved']}); "
+        f"all_reduce of {numel:,d} floats a step: host {out['all_reduce']['host_us']:.2f} us, device "
+        f"{out['all_reduce']['device_us']:.2f} us; fit_streaming {out['stream']['steps_per_s']:.1f} steps/s beside "
+        f"{out['stream']['trainer_steps_per_s']:.1f} (rel {rel_s:.3e}); evaluate_grid_sharded {GRID} in "
+        f"{out['grid']['s']:.3f} s, max abs diff {err:.3e} against kernel 1 per chunk, {sep:.3e} against the "
+        f"separable route")
+
+    # (c) two ranks sharing the card over gloo
+    data4d = dataset_from_array(synthetic_volume(SHARDED_DATA, seed=0))
+    pick = np.random.default_rng(7).permutation(len(data4d.coords))[:SHARDED_STEPS * SHARDED_BATCH]
+    t0 = time.perf_counter()
+    with RankPool(2, backend="gloo", timeout=600) as pool:
+        ranks = pool.run(gloo_rank, b_coords, b_values, data4d.coords[pick], data4d.values[pick])
+    wall = time.perf_counter() - t0
+    for r in ranks:
+        if r["errors"]:
+            fail(f"parallel gloo rank {r['rank']}: " + "; ".join(r["errors"]))
+    r0 = ranks[0]
+    rel_b = curves_match("path B's model, DP over 2 gloo ranks against world size 1",
+                         np.asarray(r0["dp_B"]["losses"][:10]), b_ref[:10])
+    for name in r0["launches"]:
+        paths[name] = {"launches": {k: sum(r["launches"][name][k] for r in ranks) for k in zero},
+                       "launches_by_rank": [r["launches"][name] for r in ranks]}
+    grid_chunks = -(-int(np.prod(GRID)) // (2 * (1 << 17)))  # 15 chunks of 2^17 on each rank
+    want = {"parallel_gloo_dp_B": {"hash_encode_forward": 10, "hash_encode_table_grad": 10,
+                                   "fused_mlp_forward": 10, "fused_mlp_backward": 10},
+            "parallel_gloo_grid": {"hash_encode_forward": grid_chunks, "fused_mlp_forward": grid_chunks},
+            "parallel_gloo_sharded_fit": {"fused_mlp_forward": SHARDED_STEPS, "fused_mlp_backward": SHARDED_STEPS},
+            "parallel_gloo_sharded_grid": {"fused_mlp_forward": SHARDED_CHUNKS}}
+    for name, per_rank in want.items():
+        if any(r["launches"][name] != {**zero, **per_rank} for r in ranks):
+            fail(f"parallel gloo {name}: launches by rank {paths[name]['launches_by_rank']}; expected "
+                 f"{ {**zero, **per_rank} } on each")
+    paths["parallel_gloo"] = {"launches": dict(zero), "wall_s": wall, "ranks": ranks}
+    log(f"[parallel] gloo, 2 ranks on cuda:0 (through the host; not a scaling number): {wall:.1f} s with the "
+        f"processes' start; B's DP fit {r0['dp_B']['steps_per_s']:.1f} steps/s, first 10 losses max rel diff "
+        f"{rel_b:.3e} against world size 1; evaluate_grid_sharded {GRID} max abs diff {r0['grid_err']:.3e}")
+    plan = r0["plan"]
+    log(f"[parallel] 4-D F = 8 table: {plan['rows']:,d} rows, {plan['table_bytes']:,d} bytes; rank loads "
+        f"{plan['loads']} rows ({plan['max_over_fair']:.3f} x the fair share), dense levels split "
+        f"{plan['split_dense_levels']}; sharded encode at N = {SHARDED_N:,d} against kernel 1: max abs diff "
+        f"{r0['encode_err']:.3e} (largest value {r0['encode_scale']:.3e}); table gradient against kernel 2: max abs "
+        f"diff {r0['grad_err']:.3e}, worst entry {r0['grad_worst_excess']:.3e} past its bound; encode + backward + "
+        f"gather {r0['encode_grad_s']:.3f} s")
+    log(f"[parallel] ShardedHashTrainer {SHARDED_STEPS} steps at batch {SHARDED_BATCH}: losses "
+        f"{r0['sharded_fit']['losses'][0]:.5f} -> {r0['sharded_fit']['losses'][-1]:.5f}, "
+        f"{r0['sharded_fit']['steps_per_s']:.1f} steps/s; decoder bit-equal across ranks "
+        f"{all(r['decoder_bitwise_equal'] for r in ranks)}; kernel 6 twice on one input bit-equal "
+        f"{r0['kernel6_repeat_bitwise_equal']} (max diff {r0['kernel6_repeat_max_diff']:.3e}); "
+        f"evaluate_grid_sharded_table {FULL4D_VOLUME} in {r0['seconds']['parallel_gloo_sharded_grid']:.2f} s, max "
+        f"abs diff {r0['sharded_grid_err']:.3e} against evaluate_grid; peak allocated a rank over the fit and grid "
+        f"{max(r['sharded_peak']['bytes'] for r in ranks):,d} bytes (limit: the table plus 4 x the shard, "
+        f"{r0['sharded_peak']['limit']:,d}); the checks before it, which hold the single table, "
+        f"{max(r['checks_peak_bytes'] for r in ranks):,d}")
+    paths["parallel_nccl_fit"].update(out)
+
+
 def main() -> int:
     import torch
 
@@ -2799,6 +3155,14 @@ def main() -> int:
     t0 = time.perf_counter()
     drive_export(torch, paths, plan, zero)
     log(f"[export] done in {time.perf_counter() - t0:.1f} s")
+
+    # the parallel layer: world size 1 through the launcher and in an NCCL group of one, two ranks over gloo
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_parallel_") as tmp:
+        path = os.path.join(tmp, "synthetic_352x352x15.nii.gz")
+        nifti.save(synthetic_volume(VOLUME, seed=0), path)
+        drive_parallel(torch, path, tmp, zero, paths)
+    log(f"[parallel] done in {time.perf_counter() - t0:.1f} s")
 
     # 6. where the time goes: device time by kernel over short fits and grid evaluations
     t0 = time.perf_counter()

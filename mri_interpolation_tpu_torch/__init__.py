@@ -17,6 +17,7 @@ tensor each kernel wrapper runs its plain PyTorch version instead.
 
 __version__ = "0.1.0"
 
+from . import io
 from .device import resolve_device
 
-__all__ = ["resolve_device", "__version__"]
+__all__ = ["io", "resolve_device", "__version__"]

@@ -58,8 +58,8 @@ class RunConfig:
     optimizer: str = "adam"
     lr_schedule: Optional[str] = None
     cosine_t_max: int = 10
-    data_parallel: bool = False          # not ported yet (ROADMAP.md)
-    shard_tables: bool = False           # not ported yet (ROADMAP.md)
+    data_parallel: bool = False          # at world size > 1: DataParallelTrainer (parallel/)
+    shard_tables: bool = False           # at world size > 1: ShardedHashTrainer (parallel/)
     stream_shard_voxels: int = 0         # >0: out-of-core fit, this many voxels on the device at a time
 
     # --- model

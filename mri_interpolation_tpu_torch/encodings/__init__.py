@@ -2,6 +2,6 @@
 
 from .fourier import GaussianFourierEncoding
 from .frequency import FrequencyEncoding
-from .hashgrid import PRIMES, HashGridEncoding
+from .hashgrid import PRIMES, HashGridEncoding, spatial_hash
 
-__all__ = ["HashGridEncoding", "PRIMES", "FrequencyEncoding", "GaussianFourierEncoding"]
+__all__ = ["HashGridEncoding", "PRIMES", "spatial_hash", "FrequencyEncoding", "GaussianFourierEncoding"]

@@ -14,9 +14,10 @@ Semantics kept from the reference:
 - dense levels clamp the cell index to ``res - 1`` (at x == 1.0 the weight
   moves onto the far corner: same value, always in bounds);
 - dense rows are row-major over the level's VERTEX grid (strides of res+1);
-- hashed rows are tcnn's spatial hash: per-dim uint32 prime multiply, XOR
-  fold, modulo the level size. Here it runs in int64 masked to 32 bits,
-  because torch's CPU ``%`` is not implemented for uint32.
+- hashed rows are tcnn's spatial hash (:func:`spatial_hash`): per-dim
+  uint32 prime multiply, XOR fold, modulo the level size. Here it runs in
+  int64 masked to 32 bits, because torch's CPU ``%`` is not implemented for
+  uint32.
 
 ``apply_grid`` encodes a regular axis-aligned grid of an all-dense encoding
 one axis at a time (two slab gathers and a lerp per axis), in plain tensor
@@ -39,7 +40,8 @@ from typing import Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
-__all__ = ["HashGridEncoding", "PRIMES", "LEVEL_CONST_WIDTH", "CELL_VIEW_MAX_CELLS", "temporal_table_tv"]
+__all__ = ["HashGridEncoding", "PRIMES", "LEVEL_CONST_WIDTH", "CELL_VIEW_MAX_CELLS", "spatial_hash",
+           "temporal_table_tv"]
 
 # Hash primes (up to 7-D input), tcnn grid.h constants.
 PRIMES = (1, 2654435761, 805459861, 3674653429, 2097192037, 1434869437, 2165219737)
@@ -56,6 +58,21 @@ LEVEL_CONST_WIDTH = 12
 # the JAX HashGridEncoding's default cell_view_max_cells: dense levels of at most this many cells
 # take its cell-view path (the others its packed path, which gives the coordinates no gradient)
 CELL_VIEW_MAX_CELLS = 1 << 18
+
+
+def spatial_hash(corner_ids: torch.Tensor, hashmap_sizes: Union[int, torch.Tensor]) -> torch.Tensor:
+    """tcnn's spatial hash of integer grid corners ``corner_ids`` (..., d),
+    non-negative: per axis a multiply by its prime modulo 2^32, the products
+    XOR-folded, then modulo ``hashmap_sizes`` (broadcastable). Returns int32
+    rows, as the JAX ``spatial_hash``. The arithmetic is int64 masked to 32
+    bits (torch's CPU ``%`` has no uint32): a product that passes 2^63 wraps
+    modulo 2^64, which keeps its low 32 bits."""
+    ids = corner_ids.to(torch.int64)
+    h = None
+    for k in range(ids.shape[-1]):
+        t = ((ids[..., k] & _MASK32) * PRIMES[k]) & _MASK32
+        h = t if h is None else h ^ t
+    return (h % torch.as_tensor(hashmap_sizes, dtype=torch.int64, device=ids.device)).to(torch.int32)
 
 
 def _level_geometry(
@@ -289,11 +306,8 @@ class HashGridEncoding:
                         t = (xi[k] + ((c >> k) & 1)) * int(vstr[k])
                         idx = t if idx is None else idx + t
                 else:
-                    h = None
-                    for k in range(d):
-                        t = (((xi[k] + ((c >> k) & 1)) & _MASK32) * PRIMES[k]) & _MASK32
-                        h = t if h is None else h ^ t
-                    idx = h % int(self.level_sizes[l])
+                    corner = torch.stack([xi[k] + ((c >> k) & 1) for k in range(d)], dim=-1)
+                    idx = spatial_hash(corner, int(self.level_sizes[l])).to(torch.int64)
                 ids_c.append(idx + int(self.level_offsets[l]))
             ids_levels.append(torch.stack(ids_c, dim=-1))
             w_levels.append(torch.stack(w_c, dim=-1))

@@ -16,8 +16,17 @@ subsample of at most ~100k training voxels; every
 ``checkpoint_every_epochs`` epochs a checkpoint with the optimizer state),
 or with ``stream_shard_voxels`` > 0 out of core with
 ``Trainer.fit_streaming`` (that many voxels on the device at a time; the
-whole grid, so not with ``even_frames_only``, ``undersample_pct`` or
-``shard_tables``). Reconstruct the volume on its own grid (``pred.nii.gz``,
+whole grid, so not with ``even_frames_only`` or ``undersample_pct``). In a
+process group of more than one rank (``torchrun``: the launcher joins the
+group its environment describes, NCCL on the card, gloo with ``--device
+cpu``) it takes the JAX launcher's parallel branches, in its order:
+``shard_tables`` (``parallel.ShardedHashTrainer``; not with streaming or a
+level anneal), then streaming with ``data_parallel``
+(``DataParallelTrainer.fit_streaming``), then ``data_parallel``
+(``DataParallelTrainer.fit``); at world size 1 both flags fall through to
+the single-device fits, as the JAX launcher does on one device. Rank 0
+alone evaluates the fitted model and writes the run directory; the other
+ranks return the fit's summary. Reconstruct the volume on its own grid (``pred.nii.gz``,
 and ``pred.png`` for a 2-D volume; with ``save_latents`` and an
 encode/decode split, the encoder's features too, ``latents.nii.gz``), score
 PSNR/SSIM against the whole volume (with ``even_frames_only`` also
@@ -43,6 +52,9 @@ Usage:
         --checkpoint_path runs/version_0/checkpoints ...
     # out of core, 4,194,304 voxels on the device at a time
     python -m mri_interpolation_tpu_torch.launcher --image_path vol.nii.gz --stream_shard_voxels 4194304 ...
+    # data-parallel over two CPU processes (gloo)
+    torchrun --nproc_per_node 2 -m mri_interpolation_tpu_torch.launcher --image_path vol.nii.gz \
+        --device cpu --data_parallel true ...
     # the capacity plan alone, for 4 cards of 80 GB
     python -m mri_interpolation_tpu_torch.launcher --image_path vol.nii.gz --plan --plan_devices 4 ...
 """
@@ -114,16 +126,17 @@ def build_model(cfg: RunConfig, dim_in: int, device: torch.device, coordinates_s
     return factory(**{k: v for k, v in kwargs.items() if k in accepted}, device=device)
 
 
-def _check_ported(cfg: RunConfig) -> None:
-    if cfg.stream_shard_voxels > 0:
-        if cfg.shard_tables:
+def _check_branches(cfg: RunConfig, world: int) -> None:
+    """The refusals of the branch the JAX launcher takes at this world
+    size, before any file is read."""
+    if cfg.shard_tables and world > 1:
+        if cfg.stream_shard_voxels > 0:
             raise ValueError("--stream_shard_voxels does not compose with --shard_tables")
-        if cfg.even_frames_only or cfg.undersample_pct > 0:
-            raise ValueError("--stream_shard_voxels streams the FULL volume grid; it does not compose with "
-                             "--even_frames_only / --undersample_pct")
-    for name in ("shard_tables", "data_parallel"):
-        if getattr(cfg, name):
-            raise NotImplementedError(f"{name} is not ported yet: ROADMAP.md, queue 1")
+        if cfg.level_anneal_steps > 0:
+            raise ValueError("--level_anneal_steps does not compose with --shard_tables")
+    elif cfg.stream_shard_voxels > 0 and (cfg.even_frames_only or cfg.undersample_pct > 0):
+        raise ValueError("--stream_shard_voxels streams the FULL volume grid; it does not compose with "
+                         "--even_frames_only / --undersample_pct")
 
 
 def _make_eval_fn(coords: np.ndarray, values: np.ndarray, zero_centered: bool, device: torch.device):
@@ -150,13 +163,23 @@ def run(cfg: RunConfig, run_dir: Optional[str] = None, device: DeviceLike = None
     from .io import even_frame_split, even_frame_training_set, load_volume, nifti, png
     from .metrics import evaluate_reconstruction
     from .ops.probe import check_build
+    from .parallel import mesh as pmesh
     from .train import TrainConfig, Trainer, restore_checkpoint, save_checkpoint
 
-    dev = resolve_device(device)
-    _check_ported(cfg)
+    pmesh.init_from_env(device)
+    world = pmesh.world_size()
+    mesh = pmesh.make_mesh(device=device) if world > 1 else None
+    dev = mesh.device if mesh is not None else resolve_device(device)
+    writer = mesh is None or mesh.rank == 0
+    _check_branches(cfg, world)
     check_build(dev)
     cfg = dataclasses.replace(cfg)
-    run_dir = run_dir or make_run_dir(cfg.output_root)
+    if writer:
+        run_dir = run_dir or make_run_dir(cfg.output_root)
+    if mesh is not None:  # every rank reports rank 0's run directory
+        shared = [run_dir]
+        torch.distributed.broadcast_object_list(shared, src=0, group=mesh.group)
+        run_dir = shared[0]
 
     # ----- data
     slice_axes = None
@@ -207,13 +230,33 @@ def run(cfg: RunConfig, run_dir: Optional[str] = None, device: DeviceLike = None
     eval_fn = None
     if cfg.eval_every_epochs > 0:
         eval_fn = _make_eval_fn(train_coords, train_values, cfg.zero_centered, dev)
-    trainer = Trainer(tc)
-    if cfg.stream_shard_voxels > 0:  # out of core; the dataset's values are already normalised
-        result = trainer.fit_streaming(model, full_image, shard_voxels=cfg.stream_shard_voxels,
-                                       lo=-1.0 if cfg.zero_centered else 0.0, value_range=False, device=dev,
-                                       eval_fn=eval_fn)
+    # a single-device fit on every rank of a group: rank 0 alone writes the scalars and checkpoints
+    single = tc if writer else dataclasses.replace(tc, log_jsonl=None, checkpoint_dir=None)
+    stream = dict(shard_voxels=cfg.stream_shard_voxels, lo=-1.0 if cfg.zero_centered else 0.0,
+                  value_range=False, eval_fn=eval_fn)  # the dataset's values are already normalised
+    if cfg.shard_tables and mesh is not None:  # the table sharded over the ranks
+        from .parallel import ShardedHashTrainer
+
+        result = ShardedHashTrainer(tc, mesh=mesh).fit(model, train_coords, train_values, eval_fn=eval_fn)
+        if writer:  # the fitted table is on the host: rank 0 reconstructs with the whole model, as JAX's launcher
+            model.to(dev)
+    elif cfg.stream_shard_voxels > 0:  # out of core
+        if cfg.data_parallel and mesh is not None:
+            from .parallel import DataParallelTrainer
+
+            result = DataParallelTrainer(tc, mesh=mesh).fit_streaming(model, full_image, **stream)
+        else:
+            result = Trainer(single).fit_streaming(model, full_image, device=dev, **stream)
+    elif cfg.data_parallel and mesh is not None:
+        from .parallel import DataParallelTrainer
+
+        result = DataParallelTrainer(tc, mesh=mesh).fit(model, train_coords, train_values, eval_fn=eval_fn)
     else:
-        result = trainer.fit(model, train_coords, train_values, device=dev, eval_fn=eval_fn)
+        result = Trainer(single).fit(model, train_coords, train_values, device=dev, eval_fn=eval_fn)
+    if not writer:
+        return {"model": model.name, "device": str(dev), "rank": mesh.rank, "world_size": world,
+                "steps": result.steps, "final_loss": result.final_loss, "train_wall_s": result.wall_time_s,
+                "run_dir": run_dir}
 
     # ----- reconstruction + quality
     lo = -1.0 if cfg.zero_centered else 0.0
@@ -260,6 +303,7 @@ def run(cfg: RunConfig, run_dir: Optional[str] = None, device: DeviceLike = None
     summary = {
         "model": model.name,
         "device": str(dev),
+        "world_size": world,
         "param_count": sum(p.numel() for p in model.parameters()),
         "steps": result.steps,
         "batch_size": min(cfg.batch_size, len(train_values)),
@@ -300,7 +344,8 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
         print(json.dumps(plan, indent=2))
         return plan
     summary = run(cfg, device=args.device)
-    print(json.dumps(summary, indent=2))
+    if "rank" not in summary:  # rank 0 prints; the other ranks of a group return their fit's summary
+        print(json.dumps(summary, indent=2))
     return summary
 
 

@@ -44,6 +44,11 @@ current one are issued; its copy runs on a side stream, the steps wait on
 the copy's event, and the pinned buffer is held until that event has
 completed. The host-synthesis and host-to-device seconds of each epoch are
 in the result.
+
+``fit`` and ``fit_streaming`` also run one rank's part of a data-parallel
+fit (``parallel.DataParallelTrainer`` calls their loops with a
+:class:`_Ranks`): the rank's column of every global batch, the step's mean
+over the ranks after ``backward``, and the epoch hooks on rank 0 alone.
 """
 
 from __future__ import annotations
@@ -53,7 +58,7 @@ import math
 import time
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field
-from typing import Callable, Dict, Iterable, List, Optional
+from typing import Callable, Dict, Iterable, List, Optional, Union
 
 import numpy as np
 import torch
@@ -101,6 +106,7 @@ class TrainResult:
     host_synth_s: np.ndarray = field(default_factory=lambda: np.array([]))
     h2d_s: np.ndarray = field(default_factory=lambda: np.array([]))
     shard_wait_s: np.ndarray = field(default_factory=lambda: np.array([]))
+    models: Optional[List[Model]] = None  # parallel.fit_multi_volume: the fitted model of each volume
 
     @property
     def final_loss(self) -> float:
@@ -155,9 +161,9 @@ class _Updates:
     step (which would skip a parameter the loss did not reach; every
     parameter of the port's models reaches it)."""
 
-    def __init__(self, cfg: TrainConfig, model: Model, n_steps_per_epoch: int,
+    def __init__(self, cfg: TrainConfig, params: Union[Model, Dict[str, torch.nn.Parameter]], n_steps_per_epoch: int,
                  freeze_mask_fn: Optional[Callable] = None):
-        named = dict(model.named_parameters())
+        named = dict(params.named_parameters()) if isinstance(params, torch.nn.Module) else dict(params)
         self.params: List[torch.nn.Parameter] = list(named.values())
         self.frozen: List[torch.nn.Parameter] = []
         if freeze_mask_fn is not None:
@@ -262,11 +268,10 @@ class EpochHooks:
         cfg, spe = self.cfg, self.steps_per_epoch
         if self.logger is not None:
             self.logger.log_epoch_losses(e, e * spe, losses)
-        if (self.eval_fn is not None and self.logger is not None and cfg.eval_every_epochs > 0
-                and (e + 1) % cfg.eval_every_epochs == 0):
+        if _eval_fires(cfg, self.eval_fn, e):
             for tag, value in self.eval_fn(model).items():
                 self.logger.log((e + 1) * spe, tag, float(value), epoch=e)
-        if cfg.checkpoint_dir and cfg.checkpoint_every_epochs > 0 and (e + 1) % cfg.checkpoint_every_epochs == 0:
+        if _checkpoint_fires(cfg, e):
             from .checkpoint import save_checkpoint
 
             save_checkpoint(cfg.checkpoint_dir, (e + 1) * spe, model.state_dict(),
@@ -275,6 +280,17 @@ class EpochHooks:
     def close(self) -> None:
         if self.logger is not None:
             self.logger.close()
+
+
+def _eval_fires(cfg: TrainConfig, eval_fn: Optional[Callable], e: int) -> bool:
+    """Whether :meth:`EpochHooks.after_epoch` of epoch ``e`` logs an eval record."""
+    return (eval_fn is not None and bool(cfg.log_jsonl) and cfg.eval_every_epochs > 0
+            and (e + 1) % cfg.eval_every_epochs == 0)
+
+
+def _checkpoint_fires(cfg: TrainConfig, e: int) -> bool:
+    """Whether :meth:`EpochHooks.after_epoch` of epoch ``e`` writes a checkpoint."""
+    return bool(cfg.checkpoint_dir) and cfg.checkpoint_every_epochs > 0 and (e + 1) % cfg.checkpoint_every_epochs == 0
 
 
 def resolve_value_range(flat_values, n: int, chunk: int, value_range):
@@ -394,14 +410,30 @@ class _ShardFeed:
         self.pool.shutdown(wait=True)
 
 
+@dataclass(frozen=True)
+class _Ranks:
+    """A process's part in a data-parallel fit (``parallel.DataParallelTrainer``):
+    rank ``rank`` of ``world`` takes column ``rank`` of every global batch
+    laid out ``(world, batch / world)``, ``mean(loss)`` averages the step's
+    gradients, float buffers and loss over the ranks after ``backward`` and
+    returns the mean loss, and the epoch hooks run on rank 0 alone. The
+    default is a fit in one process."""
+
+    world: int = 1
+    rank: int = 0
+    mean: Optional[Callable[[torch.Tensor], torch.Tensor]] = None
+
+
 def _take_step(model: Model, loss_fn: Callable, updates: "_Updates", x: torch.Tensor, y: torch.Tensor,
-               remat: bool) -> torch.Tensor:
-    """One mini-step: loss, backward, the optimizer chain; the loss, detached."""
+               remat: bool, mean: Optional[Callable[[torch.Tensor], torch.Tensor]] = None) -> torch.Tensor:
+    """One mini-step: loss, backward, ``mean`` over the ranks (if any), the
+    optimizer chain; the (mean) loss, detached."""
     loss = _step_loss(model, loss_fn, x, y, remat)
     updates.zero_grad()
     loss.backward()
+    loss = loss.detach() if mean is None else mean(loss.detach())
     updates.step()
-    return loss.detach()
+    return loss
 
 
 def _refuse_complex(model: Model) -> None:
@@ -421,6 +453,15 @@ def _model_loss(model: Model, loss: str) -> Callable[[torch.Tensor, torch.Tensor
         return hook(x, y) if hook is not None else base_loss(model(x), y)
 
     return loss_fn
+
+
+def _after_epoch(hooks: Optional[EpochHooks], e: int, losses: np.ndarray, model: Model, updates: _Updates) -> float:
+    """The epoch hooks (none on a rank other than 0); their seconds."""
+    if hooks is None:
+        return 0.0
+    th = time.perf_counter()
+    hooks.after_epoch(e, losses, model, updates.state_dict)
+    return time.perf_counter() - th
 
 
 def _result(epoch_losses, epoch_times, wall: float, hook_s: float = 0.0) -> TrainResult:
@@ -447,8 +488,11 @@ class Trainer:
         """Train ``model`` in place on ``device`` (``cuda`` unless "cpu").
         ``eval_fn(model) -> {tag: value}``: eval records every
         ``eval_every_epochs`` epochs into the scalars stream."""
+        return self._fit(model, coords, values, resolve_device(device), eval_fn, _Ranks())
+
+    def _fit(self, model: Model, coords: np.ndarray, values: np.ndarray, dev: torch.device,
+             eval_fn: Optional[Callable], ranks: _Ranks) -> TrainResult:
         cfg = self.config
-        dev = resolve_device(device)
         _refuse_complex(model)
         n = len(coords)
         batch = min(cfg.batch_size, n)
@@ -462,7 +506,7 @@ class Trainer:
         coords_d = torch.as_tensor(np.asarray(coords, dtype=np.float32)).to(dev)
         values_d = torch.as_tensor(np.asarray(values, dtype=np.float32)).to(dev)
         gen = torch.Generator(device=dev).manual_seed(cfg.seed)
-        hooks = EpochHooks(cfg, steps_per_epoch, eval_fn)
+        hooks = EpochHooks(cfg, steps_per_epoch, eval_fn) if ranks.rank == 0 else None
 
         all_losses, epoch_times, hook_s = [], [], 0.0
         t0 = time.perf_counter()
@@ -476,18 +520,18 @@ class Trainer:
                 pad = steps_per_epoch * batch - n
                 if pad > 0:  # drop_last=False: wrap the final batch around
                     perm = torch.cat([perm, perm[:pad]])
-                idx = perm[: steps_per_epoch * batch].view(steps_per_epoch, batch)
+                idx = perm[: steps_per_epoch * batch].view(steps_per_epoch, ranks.world, -1)[:, ranks.rank]
                 losses = torch.empty(steps_per_epoch, device=dev)
                 for s in range(steps_per_epoch):
-                    losses[s] = _take_step(model, loss_fn, updates, coords_d[idx[s]], values_d[idx[s]], cfg.remat)
+                    losses[s] = _take_step(model, loss_fn, updates, coords_d[idx[s]], values_d[idx[s]], cfg.remat,
+                                           ranks.mean)
                 epoch_losses = losses.cpu().numpy()  # the epoch's one host sync
                 epoch_times.append(time.perf_counter() - te)
                 all_losses.append(epoch_losses)
-                th = time.perf_counter()
-                hooks.after_epoch(e, epoch_losses, model, updates.state_dict)
-                hook_s += time.perf_counter() - th
+                hook_s += _after_epoch(hooks, e, epoch_losses, model, updates)
         finally:
-            hooks.close()
+            if hooks is not None:
+                hooks.close()
         return _result(all_losses, epoch_times, time.perf_counter() - t0, hook_s)
 
     def fit_streaming(self, model: Model, volume, shard_voxels: int = 1 << 22, lo: float = 0.0, hi: float = 1.0,
@@ -511,8 +555,12 @@ class Trainer:
         the values as they are. Schedule, accumulation, freeze mask, remat,
         the loss hook and the epoch hooks are ``fit``'s, with the cosine over
         ``n_shards * steps_per_shard`` steps an epoch."""
+        return self._fit_streaming(model, volume, shard_voxels, lo, hi, value_range, resolve_device(device), eval_fn,
+                                   _Ranks())
+
+    def _fit_streaming(self, model: Model, volume, shard_voxels: int, lo: float, hi: float, value_range,
+                       dev: torch.device, eval_fn: Optional[Callable], ranks: _Ranks) -> TrainResult:
         cfg = self.config
-        dev = resolve_device(device)
         _refuse_complex(model)
         shape = tuple(int(s) for s in volume.shape)
         n = int(np.prod(shape))
@@ -531,7 +579,12 @@ class Trainer:
         flat_values, vorder = flatten_volume_source(volume)
         vmin, vscale = resolve_value_range(flat_values, n, shard, value_range)
         feed = _ShardFeed(make_host_shard_fn(shape, lo, hi, flat_values, vmin, vscale, vorder), dev)
-        hooks = EpochHooks(cfg, steps_per_epoch, eval_fn)
+        hooks = EpochHooks(cfg, steps_per_epoch, eval_fn) if ranks.rank == 0 else None
+        local = batch // ranks.world
+
+        def my_rows(idx: np.ndarray) -> np.ndarray:
+            # the shard's global batches laid out (steps, world, local): this rank's column, step by step
+            return idx.reshape(steps_per_shard, ranks.world, local)[:, ranks.rank].reshape(-1)
 
         rng = np.random.default_rng(cfg.seed)
         all_losses, epoch_times, hook_s, streamed = [], [], 0.0, []
@@ -543,26 +596,25 @@ class Trainer:
                 pad = n_shards * shard - n
                 if pad:
                     perm = np.concatenate([perm, perm[:pad]])
-                feed.submit(perm[:shard])
+                feed.submit(my_rows(perm[:shard]))
                 losses = torch.empty(steps_per_epoch, device=dev)
                 for s in range(n_shards):
                     coords_d, values_d = feed.get()
                     if s + 1 < n_shards:  # the next shard's host synthesis overlaps this one's steps
-                        feed.submit(perm[(s + 1) * shard:(s + 2) * shard])
+                        feed.submit(my_rows(perm[(s + 1) * shard:(s + 2) * shard]))
                     for j in range(steps_per_shard):
-                        rows = slice(j * batch, (j + 1) * batch)
+                        rows = slice(j * local, (j + 1) * local)
                         losses[s * steps_per_shard + j] = _take_step(model, loss_fn, updates, coords_d[rows],
-                                                                     values_d[rows], cfg.remat)
+                                                                     values_d[rows], cfg.remat, ranks.mean)
                     del coords_d, values_d  # free this shard before the next one's copy allocates
                 epoch_losses = losses.cpu().numpy()  # the epoch's one host sync
                 epoch_times.append(time.perf_counter() - te)
                 streamed.append(feed.drain())
                 all_losses.append(epoch_losses)
-                th = time.perf_counter()
-                hooks.after_epoch(e, epoch_losses, model, updates.state_dict)
-                hook_s += time.perf_counter() - th
+                hook_s += _after_epoch(hooks, e, epoch_losses, model, updates)
         finally:
-            hooks.close()
+            if hooks is not None:
+                hooks.close()
             feed.close()
         result = _result(all_losses, epoch_times, time.perf_counter() - t0, hook_s)
         if streamed:

@@ -2,6 +2,7 @@
 the undersampling mask, the PSF kernel and its application, and the
 mid-slice viewers.
 
+- ``create_mgrid``: the reference's name for ``io.volume.make_mgrid``;
 - ``create_rn_mask``: a random undersampling mask, drawn from a
   ``torch.Generator`` in place of a JAX key;
 - ``psf_kernel``: the normalised separable Gaussian PSF, numpy, as the JAX
@@ -25,8 +26,9 @@ import torch
 
 from ..device import DeviceLike, resolve_device
 from ..io import png
+from ..io.volume import make_mgrid as create_mgrid
 
-__all__ = ["create_rn_mask", "psf_kernel", "apply_psf", "show_slices", "show", "tensor_visualisation"]
+__all__ = ["create_mgrid", "create_rn_mask", "psf_kernel", "apply_psf", "show_slices", "show", "tensor_visualisation"]
 
 
 def create_rn_mask(shape: Sequence[int], percentage: float, key: int = 0) -> Tuple[np.ndarray, np.ndarray]:

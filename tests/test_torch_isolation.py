@@ -441,6 +441,42 @@ def test_slice_eleven_entry_points_raise_without_a_card(no_card, tmp_path):
     assert set(he.LAUNCHES.values()) == {0} and set(fm.LAUNCHES.values()) == {0}
 
 
+def test_slice_thirteen_entry_points_raise_without_a_card(no_card, tmp_path, monkeypatch):
+    """The parallel layer's entry points run on the card or raise; with
+    ``device="cpu"`` (or a CPU mesh) they run, and the launcher's parallel
+    flags at world size 1 launch nothing on the CPU."""
+    from mri_interpolation_tpu_torch.io import nifti, synthetic_volume
+    from mri_interpolation_tpu_torch.parallel import (DataParallelTrainer, ShardedHashTrainer, evaluate_grid_sharded,
+                                                      fit_multi_volume, init_from_env, make_mesh)
+
+    for make in (make_mesh, lambda: DataParallelTrainer(TrainConfig()), lambda: ShardedHashTrainer(TrainConfig()),
+                 lambda: fit_multi_volume([], np.zeros((4, 3), np.float32), np.zeros((0, 4, 1), np.float32),
+                                          TrainConfig())):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()
+    model = make_hash_mlp(3, device="cpu", **TINY)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        evaluate_grid_sharded(model, (4, 4, 4))
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
+    assert not init_from_env("cpu")  # no torchrun environment: no group
+    mesh = make_mesh(device="cpu")
+    assert mesh.world_size == 1 and mesh.group is None
+    path = str(tmp_path / "vol.nii.gz")
+    nifti.save(synthetic_volume((4, 4, 4), seed=0), path)
+    for flag in ("data_parallel", "shard_tables"):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            launcher.run(RunConfig(image_path=path, output_root=str(tmp_path / "runs"), **{flag: True}))
+    he.reset_launches()
+    fm.reset_launches()
+    res = DataParallelTrainer(TrainConfig(batch_size=16), mesh=mesh).fit(
+        model, np.zeros((64, 3), np.float32), np.zeros((64, 1), np.float32))
+    assert res.steps == 4
+    summary = launcher.run(RunConfig(image_path=path, output_root=str(tmp_path / "runs"), batch_size=16,
+                                     interp_shapes=(), shard_tables=True, data_parallel=True, **TINY), device="cpu")
+    assert summary["steps"] == 4 and summary["world_size"] == 1
+    assert set(he.LAUNCHES.values()) == {0} and set(fm.LAUNCHES.values()) == {0}
+
+
 def test_evaluate_grid_refuses_a_model_on_another_device():
     model = make_hash_mlp(3, device="cpu", **TINY)
     with pytest.raises(ValueError, match="model is on"):

@@ -827,3 +827,121 @@ def test_exported_flagship_evaluator_on_card(cuda_device, tmp_path):
     assert he.LAUNCHES == {**ZERO, "hash_encode_forward": -(-int(np.prod(shape)) // chunk)}
     assert vol.shape == shape
     np.testing.assert_allclose(vol, ref, rtol=0, atol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# the parallel layer on the card: an NCCL group of one, and two ranks sharing the card over gloo (NCCL refuses
+# two ranks on one GPU; gloo moves CUDA tensors through the host). Tolerances: loss curves rtol 1e-4 (kernel 2's
+# atomics make even Trainer.fit's bits vary from run to run), grids 1e-5, the sharded encode 2e-6 of its largest
+# value against kernel 1, the sharded table gradient within kernel 2's per-entry bound.
+
+PAR_HASH = dict(n_levels=4, n_features_per_level=2, log2_hashmap_size=14, base_resolution=(4, 4, 2),
+                finest_resolution=(40, 40, 12), dim_hidden=32, n_layers=2, decoder="relu_plain")
+
+
+def _par_data():
+    from mri_interpolation_tpu_torch.io import dataset_from_array, synthetic_volume
+
+    ds = dataset_from_array(synthetic_volume((40, 40, 12), seed=3))
+    return ds.coords, ds.values
+
+
+def _gloo_card_rank(coords, values, sd):
+    """One of two gloo ranks on cuda:0: the DP fit's losses, the grid, the
+    sharded encode, gradient and fit checks; the launches of each."""
+    from mri_interpolation_tpu_torch.infer import evaluate_grid
+    from mri_interpolation_tpu_torch.ops import fused_mlp as fm
+    from mri_interpolation_tpu_torch.parallel import (DataParallelTrainer, ShardedHashTrainer, evaluate_grid_sharded,
+                                                      evaluate_grid_sharded_table, make_mesh, plan_table_sharding,
+                                                      sharded_encode_apply)
+    from mri_interpolation_tpu_torch.parallel.mesh import all_gather
+    from mri_interpolation_tpu_torch.parallel.sharded_table import _rank_rows, _table_of
+    from mri_interpolation_tpu_torch.train import TrainConfig
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = make_mesh(device="cuda:0")
+    out = {}
+    model = make_hash_mlp(3, device=mesh.device, **PAR_HASH)
+    model.load_state_dict(sd)
+    he.reset_launches()
+    out["dp_losses"] = DataParallelTrainer(TrainConfig(batch_size=2000, lr=1e-2), mesh=mesh).fit(
+        model, coords, values).losses
+    out["dp_launches"] = dict(he.LAUNCHES)
+    vol = evaluate_grid_sharded(model, (40, 40, 24), mesh=mesh, chunk_size=4096)
+    out["grid_err"] = float(np.abs(vol - evaluate_grid(model, (40, 40, 24), transform=lambda x: x)).max())
+    enc = model.encoder.geometry
+    plan = plan_table_sharding(enc, mesh.world_size)
+    table = model.encoder.table.detach()
+    gen = torch.Generator(device=mesh.device).manual_seed(5)
+    x = torch.rand((20_000, 3), generator=gen, device=mesh.device)
+    g = torch.randn((20_000, enc.output_dim), generator=gen, device=mesh.device)
+    shard = _rank_rows(table, enc, plan, mesh.rank).requires_grad_(True)
+    feats = sharded_encode_apply(enc, plan, mesh, shard, x)
+    torch.sum(feats * g).backward()
+    grad = _table_of(all_gather(mesh, shard.grad), enc, plan)
+    ref = he.hash_encode_forward(enc, table, x)
+    out["encode_share"] = _share(feats.detach(), ref)
+    out["grad_excess"] = float(((grad - he.hash_encode_table_grad(enc, x, g)).abs()
+                                - he.atomic_sum_bound(he.table_grad_abs_sum(enc, x, g))).max())
+    fm.reset_launches()
+    trainer = ShardedHashTrainer(TrainConfig(batch_size=2000, lr=1e-2), mesh=mesh)
+    res = trainer.fit(model, coords, values)
+    out["sharded_losses"] = res.losses
+    out["table_on_host"] = model.encoder.table.device.type == "cpu"
+    out["sharded_launches"] = dict(fm.LAUNCHES)
+    decoder = torch.cat([t.reshape(-1) for k, t in model.state_dict().items() if k != "encoder.table"])
+    both = all_gather(mesh, decoder)
+    out["decoder_equal"] = bool(torch.equal(both[0], both[1]))
+    vol = evaluate_grid_sharded_table(model, trainer.plan, mesh, trainer.shard, (40, 40, 12), chunk_size=4096)
+    out["sharded_grid_err"] = float(np.abs(vol - evaluate_grid(model.to(mesh.device), (40, 40, 12))).max())
+    return out
+
+
+@pytest.mark.gpu
+def test_data_parallel_in_an_nccl_group_of_one(cuda_device, tmp_path, full_fp32):
+    import torch.distributed as dist
+
+    from mri_interpolation_tpu_torch.infer import evaluate_grid
+    from mri_interpolation_tpu_torch.parallel import DataParallelTrainer, evaluate_grid_sharded, make_mesh
+    from mri_interpolation_tpu_torch.train import TrainConfig, Trainer
+
+    coords, values = _par_data()
+    ref_model = make_hash_mlp(3, device=cuda_device, **PAR_HASH)
+    model = make_hash_mlp(3, device=cuda_device, **PAR_HASH)
+    cfg = TrainConfig(batch_size=2000, lr=1e-2)
+    ref = Trainer(cfg).fit(ref_model, coords, values, device=cuda_device)
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path / 'store'}", world_size=1, rank=0)
+    try:
+        mesh = make_mesh(device=cuda_device)
+        assert mesh.world_size == 1 and mesh.group is not None
+        he.reset_launches()
+        res = DataParallelTrainer(cfg, mesh=mesh).fit(model, coords, values)
+        assert he.LAUNCHES == {**ZERO, "hash_encode_forward": res.steps, "hash_encode_table_grad": res.steps}
+        np.testing.assert_allclose(res.losses[:10], ref.losses[:10], rtol=1e-4)
+        vol = evaluate_grid_sharded(model, (40, 40, 24), mesh=mesh, chunk_size=4096)
+        np.testing.assert_allclose(vol, evaluate_grid(model, (40, 40, 24), chunk_size=4096, transform=lambda x: x),
+                                   rtol=0, atol=1e-5)
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.gpu
+def test_two_gloo_ranks_share_the_card(cuda_device, full_fp32):
+    from mri_interpolation_tpu_torch.parallel import RankPool
+    from mri_interpolation_tpu_torch.train import TrainConfig, Trainer
+
+    coords, values = _par_data()
+    model = make_hash_mlp(3, device=cuda_device, **PAR_HASH)
+    sd = {k: v.cpu() for k, v in model.state_dict().items()}
+    ref = Trainer(TrainConfig(batch_size=2000, lr=1e-2)).fit(model, coords, values, device=cuda_device)
+    with RankPool(2, backend="gloo", timeout=300) as pool:
+        ranks = pool.run(_gloo_card_rank, coords, values, sd)
+    steps = len(coords) // 2000
+    for out in ranks:
+        np.testing.assert_allclose(out["dp_losses"][:10], ref.losses[:10], rtol=1e-4)
+        assert out["dp_launches"] == {**ZERO, "hash_encode_forward": steps, "hash_encode_table_grad": steps}
+        assert out["grid_err"] <= 1e-5 and out["sharded_grid_err"] <= 1e-5
+        assert out["encode_share"] <= 2e-6 and out["grad_excess"] <= 0
+        assert out["sharded_launches"] == {"fused_mlp_forward": steps, "fused_mlp_backward": steps}
+        assert np.all(np.isfinite(out["sharded_losses"])) and out["decoder_equal"] and out["table_on_host"]
+    np.testing.assert_array_equal(ranks[0]["sharded_losses"], ranks[1]["sharded_losses"])

@@ -208,8 +208,22 @@ def test_launcher_streams_the_whole_grid(tmp_path):
 
 @pytest.mark.parametrize("field, value, match", [("even_frames_only", True, "FULL volume grid"),
                                                  ("undersample_pct", 10.0, "FULL volume grid"),
-                                                 ("shard_tables", True, "does not compose with --shard_tables")])
+                                                 ("shard_tables", True, None)])
 def test_launcher_streaming_refuses_what_it_cannot_stream(tmp_path, field, value, match):
+    """Streaming refuses a reduced training set before reading a file. With
+    ``shard_tables`` at world size 1 (no process group) it streams, as the
+    JAX launcher falls through to ``Trainer.fit_streaming`` on one device:
+    the run equals the one without the flag."""
+    if match is None:
+        kw = dict(RELU_4D, base_resolution=(2, 2, 2, 2), finest_resolution=(10, 8, 4, 5))
+        cfg = RunConfig(image_path=_write(tmp_path, (10, 8, 4, 5)), output_root=str(tmp_path / "runs"), epochs=1,
+                        batch_size=128, stream_shard_voxels=500, interp_shapes=(), save_checkpoint=False, **kw)
+        plain = launcher.run(cfg, device="cpu")
+        setattr(cfg, field, value)
+        summary = launcher.run(cfg, device="cpu")
+        assert summary["steps"] == plain["steps"] == 5 * 3 and summary["final_loss"] == plain["final_loss"]
+        assert len(summary["stream"]["host_synth_s"]) == 1
+        return
     cfg = RunConfig(image_path=str(tmp_path / "absent.nii.gz"), output_root=str(tmp_path / "runs"),
                     stream_shard_voxels=100)
     setattr(cfg, field, value)
