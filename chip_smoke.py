@@ -35,7 +35,10 @@ Phases, each printed with its time as it ends:
    encoder at N = 10,000 and 131,072, x = clip(u + 0.05 n, 0, 1), with the
    plain-torch coordinate gradient beside them, card against CPU; kernels
    1-2 on the full-4D recipe's encoder, 5 levels x F = 4 at 16 corners,
-   12,134,251 rows, at N = 50,000 and 131,072, x in [0, 1]), with
+   12,134,251 rows, at N = 50,000 and 131,072, x in [0, 1]; on those
+   encoders kernel 2 is held against the float64 sum of the plain version's
+   terms, so that only its own rounding meets the per-entry bound, and its
+   worst entry is printed), with
    times (the
    profiler's device time, or CUDA events over a CUDA graph where it records
    none; kernel 5's forward rows hold its split prologue and its forward
@@ -113,17 +116,21 @@ Phases, each printed with its time as it ends:
    - classical: the CLI with ``--method linear`` and ``cubic``, each file
      held to numpy within 1e-6;
    - registration_protocol: ``registration_interp_eval`` at its defaults
-     (7 pairs), the odd frames' PSNR and SSIM and the wall a pair;
+     on the volume's first ``SLICE_TEN_FRAMES`` = 9 frames (4 pairs; cut
+     from 15 frames and 7 pairs, which the experiments phase's protocol row
+     (f) runs), the odd frames' PSNR and SSIM and the wall a pair;
      classical_registration: the CLI with ``--method registration`` and
-     ``registration_group`` (finite files, the even frames exact);
+     ``registration_group`` on all 15 frames (finite files, the even frames
+     exact);
    - stacked: ``stacked_interp_eval`` with ``STACK_ROSTER`` (warp_transfer of
-     one seed and one epoch, both registrations, cubic, linear): the global
-     LOO weights on the simplex, the odd PSNR, sigma_mean, kernels 1-2 once
-     a step of the 7 warp fits; stacking_cli: ``python -m
-     ...train.stacking`` on the volume's 8 even frames (saved as NIfTI)
-     with the same roster and a cache, twice: 7 fits and the odd frames
-     scored against the volume's, then a replay that calls no family,
-     launches nothing and writes the same volume;
+     one seed and one epoch, both registrations, cubic, linear) on the first
+     9 frames (cut from 15): the global LOO weights on the simplex, the odd
+     PSNR, sigma_mean, kernels 1-2 once a step of the 4 warp fits;
+     stacking_cli: ``python -m ...train.stacking`` on those frames' 5 even
+     frames (saved as NIfTI; cut from 8) with the same roster and a cache,
+     twice: 4 fits and the odd frames scored against the volume's, then a
+     replay that calls no family, launches nothing and writes the same
+     volume;
    - full4d: the full-4D recipe (``scripts/experiments.py:398-402``) on a
      synthetic (352, 352, 6, 15) volume written as uncompressed NIfTI
      through ``launcher.main``: ``--plan`` (no device), full4d_resident (1
@@ -194,6 +201,20 @@ Phases, each printed with its time as it ends:
      table's bytes plus 4 x its shard's (the shard, its gradient and Adam's
      two moments: a rank never holds the table besides them); the ranks' launches
      reported back and counted by path;
+   - experiments (after the parallel layer; its wall time printed): the
+     experiment layer on a SYNTHETIC volume of the sample's shape, (352, 352,
+     6, 15) from ``io.synthetic_volume`` (seed 17), written as NIfTI:
+     ``experiments.matrix.run_2dt`` at k = 0.02 (the 17 ``fit_and_eval``
+     rows at their widths, 1-2 epochs each, the two ``fit_frames`` rows,
+     protocol rows (a)-(f) and the linear baseline, the three traces),
+     ``aux.run_aux`` and ``roofline.run_roofline`` (the microbenches, both
+     configs at all four batch sizes) at the same k, the results document
+     (``render.write_results_md``), then ``examples.tutorial`` and
+     ``examples.motion_interpolation`` at their defaults with their
+     assertions; each a path of its own. Checked: the rows' names are the
+     JAX script's, every number is finite, the document has each section
+     whose data is present, every fit ran on the card, and kernels 1, 2, 5
+     and 6 launched; each row's wall, steps/s and PSNR are printed;
 6. profile: device time by kernel over 20 training steps of each path (one
    epoch of 15 frames for the multi-frame models) and one grid evaluation
    of the flagship, paths A and B, ngp, protocol_tv, hash_siren and
@@ -335,6 +356,7 @@ REG_GRAD_SHARE = 1e-5
 # the stacked fusion's roster on the card: the transfer of a one-seed, one-epoch warp INR (default_interp_families'
 # widths), the pairwise and group registrations at their defaults, cubic and linear
 STACK_ROSTER = ("warp_transfer", "registration", "registration_group", "cubic", "linear")
+SLICE_TEN_FRAMES = 9  # registration_protocol, stacked and stacking_cli on the volume's first 9 frames (of 15)
 TCNN_FLAGS = ["--n_levels", "16", "--n_features_per_level", "2", "--log2_hashmap_size", "19",
               "--base_resolution", "16", "--per_level_scale", "1.4", "--dim_hidden", "128", "--n_layers", "2",
               "--decoder", "relu_plain", "--lr", "1e-2", "--optimizer", "adam_tcnn"]
@@ -604,22 +626,27 @@ def check_kernels(torch, he, enc_flagship, enc_hashed, dev):
 def encoder_rows(torch, he, enc, table, x, g, what: str, geometry: str = "multi_frame") -> dict:
     """Kernels 1 and 2 on the encoder ``enc`` (by default the multi-frame
     one at one frame), against their plain versions (forward: 2e-6 of the
-    largest value; table gradient: the per-entry atomic bound), with times,
-    bounds, the plain versions' and, for kernel 2, ``index_add_``'s."""
+    largest value; table gradient: the per-entry atomic bound against the
+    float64 sum of the same terms, so that only the kernel's rounding is
+    measured), with times, bounds, the plain versions' and, for kernel 2,
+    ``index_add_``'s."""
     n, d, L, F = x.shape[0], enc.input_dim, enc.n_levels, enc.n_features_per_level
     out = he.hash_encode_forward(enc, table, x)
     ref = he.hash_encode_reference(enc, table, x)
     dt = he.hash_encode_table_grad(enc, x, g)
-    dref = he.hash_encode_table_grad_reference(enc, x, g)
+    dref = he.hash_encode_table_grad_exact(enc, x, g)
     abs_sum = he.table_grad_abs_sum(enc, x, g)
     torch.cuda.synchronize()
     ferr, tol = float((out - ref).abs().max()), FWD_ATOL * max(1.0, float(ref.abs().max()))
     if not math.isfinite(ferr) or ferr > tol:
         fail(f"hash_encode_forward {geometry} {what}: max abs err {ferr} > {tol}")
     gerr = float((dt - dref).abs().max())
-    excess = float(((dt - dref).abs() - he.atomic_sum_bound(abs_sum)).max())
+    bound = he.atomic_sum_bound(abs_sum)
+    excess = float(((dt - dref).abs() - bound).max())
+    worst = float(((dt - dref).abs() / bound).max())  # the largest share of its bound that an entry uses
     if not math.isfinite(gerr) or excess > 0.0:
-        fail(f"hash_encode_table_grad {geometry} {what}: max abs err {gerr}, {excess} over the per-row bound")
+        fail(f"hash_encode_table_grad {geometry} {what}: max abs err {gerr} against the float64 sum, {excess} over "
+             "the per-row bound")
     ids, w = enc.corner_ids_and_weights(x)
     touched = int(torch.unique(ids).numel())
     contrib = (g.reshape(n, L, 1, F) * w.unsqueeze(-1)).reshape(-1, F)
@@ -630,8 +657,8 @@ def encoder_rows(torch, he, enc, table, x, g, what: str, geometry: str = "multi_
             **kernel_times(lambda: he.hash_encode_forward(enc, table, x), "hash_encode_forward_kernel"),
             "plain_ms": time_ms(lambda: he.hash_encode_reference(enc, table, x), iters=5),
             "bound_ms": fb, "bound_by": fk, "library_ms": None}
-    grow = {"geometry": geometry, "n": n, "what": what, "max_abs_err": gerr,
-            "largest_bound": float(he.atomic_sum_bound(abs_sum).max()),
+    grow = {"geometry": geometry, "n": n, "what": what, "max_abs_err": gerr, "worst_share_of_bound": worst,
+            "largest_bound": float(bound.max()),
             **kernel_times(lambda: he.hash_encode_table_grad(enc, x, g), "hash_encode_table_grad", per_call=True),
             "plan": he.table_grad_plan(enc, n)._asdict(),
             "plain_ms": time_ms(lambda: he.hash_encode_table_grad_reference(enc, x, g), iters=5),
@@ -641,6 +668,8 @@ def encoder_rows(torch, he, enc, table, x, g, what: str, geometry: str = "multi_
         log(f"  {label} {geometry} N={n:>7,d} ({what}): err {row['max_abs_err']:.3e}  kernel {row['ms']} ms"
             f"  per call {row['call_ms']:.4f} ms  plain {row['plain_ms']:.4f} ms"
             f"  library {row['library_ms']} ms  bound {row['bound_ms']:.5f} ms ({row['bound_by']})")
+    log(f"  table_grad {geometry} N={n:>7,d} ({what}): against the float64 sum, the worst entry at {worst:.4f} of "
+        f"its per-entry bound (largest bound {grow['largest_bound']:.3e})")
     return {"hash_encode_forward": frow, "hash_encode_table_grad": grow}
 
 
@@ -1829,14 +1858,15 @@ def check_registration_card_vs_cpu(torch, card=None) -> dict:
 def drive_slice_ten_paths(path: str, img: np.ndarray, tmp: str, zero: dict, paths: dict) -> None:
     """Phase 5's paths of the registration slice, each with the counters at
     0 just before it and read just after, on the volume at ``path`` (``img``
-    as an array): registration_protocol (``registration_interp_eval`` at its
-    defaults: 7 pairs), classical_registration (the CLI with ``--method
-    registration`` and ``registration_group``), stacked
+    as an array): classical_registration (the CLI with ``--method
+    registration`` and ``registration_group``) on the whole volume, and on
+    its first ``SLICE_TEN_FRAMES`` frames registration_protocol
+    (``registration_interp_eval`` at its defaults: 4 pairs), stacked
     (``stacked_interp_eval`` with ``STACK_ROSTER``, one seed, one warp epoch)
-    and stacking_cli (``python -m ...train.stacking`` on the volume's even
-    frames saved as NIfTI, with the same roster and a prediction cache,
-    twice: the second run calls no family and writes the same volume; the
-    first one's odd frames scored against the volume's)."""
+    and stacking_cli (``python -m ...train.stacking`` on their even frames
+    saved as NIfTI, with the same roster and a prediction cache, twice: the
+    second run calls no family and writes the same volume; the first one's
+    odd frames scored against the volume's)."""
     import torch
     from mri_interpolation_tpu_torch.infer import classical
     from mri_interpolation_tpu_torch.io import load_volume, nifti
@@ -1844,6 +1874,7 @@ def drive_slice_ten_paths(path: str, img: np.ndarray, tmp: str, zero: dict, path
     from mri_interpolation_tpu_torch.train import stacking as stk
     from mri_interpolation_tpu_torch.train.protocols import registration_interp_eval
 
+    img = img[..., :SLICE_TEN_FRAMES]
     even = img[..., ::2]
     n_pairs = even.shape[-1] - 1
     (recon, q), seconds, launches = counted(lambda: registration_interp_eval(img))
@@ -1855,7 +1886,7 @@ def drive_slice_ten_paths(path: str, img: np.ndarray, tmp: str, zero: dict, path
                                       "odd": q["odd"], "full": q["full"]}
     log(f"[registration_protocol] {n_pairs} pairs of {VOLUME[:-1]} at the default stages: odd PSNR "
         f"{q['odd']['psnr']:.3f} dB, SSIM {q['odd']['ssim']:.4f}; full {q['full']['psnr']:.3f} dB; {seconds:.1f} s "
-        f"({seconds / n_pairs:.2f} s a pair)")
+        f"({seconds / n_pairs:.2f} s a pair; the first {SLICE_TEN_FRAMES} frames)")
 
     data = nifti.load(path).get_fdata(np.float32)
     data = data / data.max()
@@ -1885,7 +1916,7 @@ def drive_slice_ten_paths(path: str, img: np.ndarray, tmp: str, zero: dict, path
     disk = stk._FIT_DISK_DIR
     stk._FIT_DISK_DIR = ""
     try:
-        families = stk.default_interp_families(cfg, VOLUME, seeds=(1337,), include=STACK_ROSTER)
+        families = stk.default_interp_families(cfg, img.shape, seeds=(1337,), include=STACK_ROSTER)
         (recon, q), seconds, launches = counted(lambda: stk.stacked_interp_eval(img, cfg, families=families))
         steps = fit_steps(even.shape[-1])
         want = {**zero, "hash_encode_forward": steps, "hash_encode_table_grad": steps}
@@ -1896,7 +1927,8 @@ def drive_slice_ten_paths(path: str, img: np.ndarray, tmp: str, zero: dict, path
                  f"{np.array_equal(recon[..., ::2], even)}, weights {w}, odd {q['odd']}")
         paths["stacked"] = {"launches": launches, "wall_s": seconds, "weights": w, "odd": q["odd"], "full": q["full"],
                             "sigma_mean": q["uncertainty"]["sigma_mean"]}
-        log(f"[stacked] roster {STACK_ROSTER}, one seed, one warp epoch: global LOO weights "
+        log(f"[stacked] roster {STACK_ROSTER}, one seed, one warp epoch, the first {SLICE_TEN_FRAMES} frames: global LOO "
+            "weights "
             + ", ".join(f"{k} {v:.4f}" for k, v in w.items()) + f"; odd PSNR {q['odd']['psnr']:.3f} dB, SSIM "
             f"{q['odd']['ssim']:.4f}; sigma_mean {q['uncertainty']['sigma_mean']:.5f}; launches {launches}; "
             f"{seconds:.1f} s")
@@ -1941,7 +1973,7 @@ def drive_slice_ten_paths(path: str, img: np.ndarray, tmp: str, zero: dict, path
     n_calls = len(STACK_ROSTER) * (1 + T - 2)
     t_up = 2 * (T - 1) + 1
     if (first["launches"] != want or first["calls"] != n_calls or second["calls"] != 0 or second["launches"] != zero
-            or first["volume"].shape != VOLUME[:-1] + (t_up,) or not np.all(np.isfinite(first["volume"]))
+            or first["volume"].shape != img.shape[:-1] + (t_up,) or not np.all(np.isfinite(first["volume"]))
             or first["volume"].tobytes() != second["volume"].tobytes()
             or not np.array_equal(first["volume"][..., ::2], load_volume(even_path).image())):
         fail(f"stacking_cli: first run {first['calls']} family calls (expected {n_calls}), launches "
@@ -1950,7 +1982,7 @@ def drive_slice_ten_paths(path: str, img: np.ndarray, tmp: str, zero: dict, path
              f"{first['volume'].tobytes() == second['volume'].tobytes()}")
     paths["stacking_cli"] = {"launches": first["launches"], "wall_s": first["wall_s"],
                              "replay_wall_s": second["wall_s"], "weights": first["weights"], "odd_psnr": odd_psnr}
-    log(f"[stacking_cli] the {T} even frames of {VOLUME} to {t_up} frames, roster {STACK_ROSTER}: {first['calls']} "
+    log(f"[stacking_cli] the {T} even frames of {img.shape} to {t_up} frames, roster {STACK_ROSTER}: {first['calls']} "
         f"family calls, launches {first['launches']}, {first['wall_s']:.1f} s; the odd frames against the volume's: "
         f"PSNR {odd_psnr:.3f} dB; replay from the cache: no family called, no launch, the same volume bit for bit, "
         f"{second['wall_s']:.1f} s; global weights " + ", ".join(f"{k} {v:.4f}" for k, v in first["weights"].items()))
@@ -3009,6 +3041,133 @@ def drive_parallel(torch, path: str, tmp: str, zero: dict, paths: dict) -> None:
     paths["parallel_nccl_fit"].update(out)
 
 
+EXPERIMENTS_K = 0.02  # the matrix's epoch scale: 1-2 epochs a row (3 for multi_siren), every row at its widths
+EXPERIMENTS_VOLUME = (352, 352, 6, 15)  # the sample ankle volume's shape; synthetic, seed 17
+# scripts/experiments.py's row names, letter for letter (run_2dt :91-243, the protocol :259-333, run_aux :505-512)
+EXPERIMENT_ROWS = [
+    "hash_mlp (dense storage)", "hash_mlp (reference hashed)", "hash_mlp (tcnn config)", "siren 352x5",
+    "modulated_siren 256x4", "rff_net 256f", "freq_mlp (siren enc)", "gabor 256x4", "hash_mlp (dense, F=4)",
+    "hash_mlp (TPU-native NGP: 3L F8 paper+cosine)", "hash_mlp (TPU-native NGP: 3L F4 paper+cosine)",
+    "hash_mlp (TPU-native NGP: 3L F2 paper+cosine)", "hash_mlp (dense F=4, decoder=norm_proper)",
+    "hash_mlp (dense F=4, decoder=relu_plain)", "mlp 352x8 (test_script config)", "psf_siren 256x5 (5^3 PSF)",
+    "hash_siren 64x4 (10L dense)", "multi_siren 128x4 (15 frame encoders)",
+    "multi_hash_mlp (15 frame encoders, 10L dense)"]
+EXPERIMENT_PROTOCOL = [
+    "hash_mlp (t-res capped)", "hash_mlp (full t-res + temporal TV)", "warp_inr (motion-compensated)",
+    "warp_inr (+ residual + accel prior)", "warp_inr ensemble (4 seeds)", "registration midpoint (pairwise)",
+    "classical linear interpolation"]
+EXPERIMENT_UNDERSAMPLE = ["hash_mlp (NGP 3L F4)", "warp_inr"] * 2
+EXPERIMENT_SECTIONS = ["| model | params | epochs | steps/s | voxel-evals/s | PSNR (dB) | SSIM |",
+                       "## Temporal interpolation protocol (train even frames, evaluate odd)",
+                       "- **Two-phase hash training**", "## Sparse-acquisition protocol (random undersampling)",
+                       "## Roofline: measured step time vs the chip's limits"]
+
+
+def numbers_of(node):
+    """Every int or float in a nested dict or list."""
+    if isinstance(node, dict):
+        return [v for child in node.values() for v in numbers_of(child)]
+    if isinstance(node, list):
+        return [v for child in node for v in numbers_of(child)]
+    return [node] if isinstance(node, (int, float)) and not isinstance(node, bool) else []
+
+
+def drive_experiments(torch, zero: dict, paths: dict) -> None:
+    """The experiment layer on the card: ``run_2dt``, ``run_aux`` and
+    ``run_roofline`` at k = EXPERIMENTS_K on a synthetic volume of the
+    sample's shape, the results document, then the tutorial and the motion
+    example at their defaults. Each is a path of its own (counters at 0 just
+    before, read just after). Checks: the row names are the JAX script's, every
+    number of the results is finite, the document has each section whose data
+    is present, every fit ran on the card, and kernels 1, 2, 5 and 6 launched."""
+    from mri_interpolation_tpu_torch.examples import motion_interpolation, tutorial
+    from mri_interpolation_tpu_torch.experiments import aux, common, matrix, render, roofline
+    from mri_interpolation_tpu_torch.io import nifti, synthetic_volume
+    from mri_interpolation_tpu_torch.train import trainer as trainer_mod
+
+    fit_devices = []
+    originals = {name: getattr(trainer_mod.Trainer, name) for name in ("fit", "fit_frames")}
+
+    def spied(name):
+        def call(self, model, *args, **kw):
+            result = originals[name](self, model, *args, **kw)
+            fit_devices.append(next(model.parameters()).device.type)
+            return result
+        return call
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_experiments_") as tmp:
+        t0 = time.perf_counter()
+        path = os.path.join(tmp, "synthetic_352x352x6x15.nii")
+        nifti.save(synthetic_volume(EXPERIMENTS_VOLUME, seed=17), path)
+        log(f"[experiments] SYNTHETIC volume {EXPERIMENTS_VOLUME} (io.synthetic_volume, seed 17; not the sample "
+            f"ankle) written in {time.perf_counter() - t0:.1f} s; every number below is of this volume")
+        out_dir = os.path.join(tmp, "results")
+        out = {"device": common.describe_device("cuda")}
+        stages = [
+            ("exp_2dt", lambda: matrix.run_2dt(out, EXPERIMENTS_K, image_path=path, out_dir=out_dir, device="cuda")),
+            ("exp_aux", lambda: aux.run_aux(out, EXPERIMENTS_K, image_path=path, device="cuda")),
+            ("exp_roofline", lambda: roofline.run_roofline(out, EXPERIMENTS_K, image_path=path, device="cuda")),
+            ("exp_tutorial", lambda: tutorial.main(["--device", "cuda"])),
+            ("exp_motion", lambda: motion_interpolation.main(["--device", "cuda"])),
+        ]
+        for name in originals:
+            setattr(trainer_mod.Trainer, name, spied(name))
+        try:
+            for name, fn in stages:
+                buf = io.StringIO()
+                with contextlib.redirect_stdout(buf):
+                    result, seconds, launches = counted(fn)
+                paths[name] = {"wall_s": seconds, "launches": launches, "result": result}
+                log(f"[{name}] {seconds:.1f} s; launches {launches}")
+        finally:
+            for name, fn in originals.items():
+                setattr(trainer_mod.Trainer, name, fn)
+        doc = render.write_results_md(out, out_dir)
+        with open(doc) as f:
+            text = f.read()
+        traces = sorted(os.listdir(os.path.join(out_dir, "traces")))
+
+    log(f"[experiments] device {out['device']}")
+    for row in out["rows"]:
+        log(f"[experiments] {row['name']}: {row['wall_s']} s, {row['steady_steps_per_sec']} steps/s, "
+            f"{row['epochs']} epochs at batch {row['batch']}, PSNR {row['psnr']} dB, SSIM {row['ssim']}")
+    for row in out["protocol"]:
+        log(f"[experiments] protocol {row['name']}: odd PSNR {row['odd_psnr']} dB, SSIM {row['odd_ssim']}")
+    log(f"[experiments] two_phase {json.dumps(out['aux']['two_phase'])}")
+    for row in out["aux"]["undersample"]:
+        log(f"[experiments] undersample {json.dumps(row)}")
+    log(f"[experiments] roofline microbenches: gather {out['roofline']['gather_ns_per_element']} ns/element, "
+        f"scatter {json.dumps(out['roofline']['scatter_ns'])}")
+    for cfg_name in roofline.ROOFLINE_CONFIGS:
+        for pt in out["roofline"][cfg_name]:
+            log(f"[experiments] roofline {cfg_name} {json.dumps(pt)}")
+    log(f"[experiments] tutorial PSNR {json.dumps(paths['exp_tutorial']['result'])}; motion "
+        f"{json.dumps(paths['exp_motion']['result'])}; traces {traces}")
+
+    if [r["name"] for r in out["rows"]] != EXPERIMENT_ROWS:
+        fail(f"experiments: rows {[r['name'] for r in out['rows']]}")
+    if [r["name"] for r in out["protocol"]] != EXPERIMENT_PROTOCOL:
+        fail(f"experiments: protocol rows {[r['name'] for r in out['protocol']]}")
+    if [r["name"] for r in out["aux"]["undersample"]] != EXPERIMENT_UNDERSAMPLE:
+        fail(f"experiments: undersample rows {out['aux']['undersample']}")
+    numbers = numbers_of({k: v for k, v in out.items() if k != "device"})
+    numbers += numbers_of([paths[name]["result"] for name in ("exp_tutorial", "exp_motion")])
+    if not all(math.isfinite(v) for v in numbers):
+        fail(f"experiments: a number is not finite: {json.dumps(out)}")
+    missing = [s for s in EXPERIMENT_SECTIONS if s not in text]
+    if missing or traces != ["flagship_dense_f4", "grid_eval_fastpath", "tpu_native_ngp_3l_f8"]:
+        fail(f"experiments: the document lacks {missing}; traces {traces}")
+    if not fit_devices or set(fit_devices) != {"cuda"}:
+        fail(f"experiments: fits ran on {sorted(set(fit_devices))}")
+    launched = {k: sum(paths[name]["launches"][k] for name, _ in stages) for k in zero}
+    unlaunched = [k for k in ("hash_encode_forward", "hash_encode_table_grad", "fused_mlp_forward",
+                              "fused_mlp_backward") if launched[k] == 0]
+    if unlaunched:
+        fail(f"experiments: kernels {unlaunched} never launched; launches {launched}")
+    log(f"[experiments] {len(fit_devices)} fits, all on the card; launches {launched}; the document "
+        f"{len(text.splitlines())} lines")
+
+
 def main() -> int:
     import torch
 
@@ -3163,6 +3322,11 @@ def main() -> int:
         nifti.save(synthetic_volume(VOLUME, seed=0), path)
         drive_parallel(torch, path, tmp, zero, paths)
     log(f"[parallel] done in {time.perf_counter() - t0:.1f} s")
+
+    # the experiment layer: the results matrix's 2-D+t, aux and roofline subcommands, the document, the examples
+    t0 = time.perf_counter()
+    drive_experiments(torch, zero, paths)
+    log(f"[experiments] done in {time.perf_counter() - t0:.1f} s")
 
     # 6. where the time goes: device time by kernel over short fits and grid evaluations
     t0 = time.perf_counter()

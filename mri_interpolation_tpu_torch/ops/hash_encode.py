@@ -40,6 +40,7 @@ __all__ = [
     "hash_encode_table_grad",
     "hash_encode_reference",
     "hash_encode_table_grad_reference",
+    "hash_encode_table_grad_exact",
     "TableGradPlan",
     "table_grad_plan",
     "plan_words",
@@ -142,6 +143,16 @@ def hash_encode_table_grad_reference(enc: HashGridEncoding, x: torch.Tensor, g: 
     """dL/dtable for upstream g (N, L*F): scatter-add g*w into a zeroed
     (total_size, F) table with ``index_add_``."""
     return _scatter_levels(enc, x, g, range(enc.n_levels))
+
+
+def hash_encode_table_grad_exact(enc: HashGridEncoding, x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """The table gradient rounded once: the plain version's float32 terms
+    g*w, summed in float64 and cast to float32. Against it, a kernel's
+    difference is its own summation error alone (``index_add_`` in float32
+    rounds too, in an order of its own)."""
+    ids, contrib = _scatter_terms(enc, x, g, range(enc.n_levels))
+    dtable = torch.zeros((enc.total_size, enc.n_features_per_level), dtype=torch.float64, device=g.device)
+    return dtable.index_add_(0, ids, contrib.double()).to(g.dtype)
 
 
 def _scatter_levels(enc: HashGridEncoding, x: torch.Tensor, g: torch.Tensor, levels) -> torch.Tensor:

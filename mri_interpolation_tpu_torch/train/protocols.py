@@ -64,16 +64,20 @@ def key_frame_subset(coords: np.ndarray, values: np.ndarray, image_shape: Sequen
 
 def two_phase_hash_fit(model: Model, coords: np.ndarray, values: np.ndarray, image_shape: Sequence[int],
                        key_frames: Sequence[int] = (3, 7, 13), pretrain_config: Optional[TrainConfig] = None,
-                       train_config: Optional[TrainConfig] = None, device: DeviceLike = None
-                       ) -> Tuple[TrainResult, TrainResult]:
+                       train_config: Optional[TrainConfig] = None, device: DeviceLike = None,
+                       between_phases: Optional[Callable[[Model], None]] = None) -> Tuple[TrainResult, TrainResult]:
     """Phase 1 fits ``model`` on the key frames; phase 2, with a fresh
     optimizer, every parameter outside ``encoder.`` frozen (the trainer's
-    freeze mask), on all the data. Returns (phase 1, phase 2)."""
+    freeze mask), on all the data. Returns (phase 1, phase 2).
+    ``between_phases(model)`` runs after phase 1: the JAX function returns
+    phase 1's parameters, where the port trains one model in place."""
     pretrain_config = pretrain_config or TrainConfig(batch_size=5000, epochs=10, lr=5e-3)
     train_config = train_config or TrainConfig(batch_size=10000, epochs=10, lr=5e-3)
     dev = resolve_device(device)
     kc, kv = key_frame_subset(coords, values, image_shape, key_frames)
     phase1 = Trainer(pretrain_config).fit(model, kc, kv, device=dev)
+    if between_phases is not None:
+        between_phases(model)
     freeze = lambda named: {k: k.startswith("encoder.") for k in named}  # noqa: E731  (True: trainable)
     phase2 = Trainer(train_config, freeze_mask_fn=freeze).fit(model, coords, values, device=dev)
     return phase1, phase2

@@ -149,6 +149,25 @@ def test_autograd_function_on_cpu(name):
     np.testing.assert_array_equal(y.detach().numpy(), he.hash_encode_reference(enc, t.detach(), xt).numpy())
 
 
+@pytest.mark.parametrize("name", ["flagship", "d4_hashed"])
+def test_table_grad_exact_is_the_float64_sum_rounded_once(name):
+    """The card checks' reference for kernel 2: the plain version's float32
+    terms summed in float64 (here against numpy's ``add.at``), cast once;
+    x in [-1, 1], where clamped cells extrapolate the weights. Within an
+    ulp of the float64 sum, and within the atomic bound of the float32
+    plain version."""
+    enc, _, x, _, g = _inputs(CONFIGS[name])
+    xt, gt = torch.from_numpy(2 * x - 1), torch.from_numpy(g)
+    got = he.hash_encode_table_grad_exact(enc, xt, gt)
+    ids, terms = he._scatter_terms(enc, xt, gt, range(enc.n_levels))
+    want = np.zeros((enc.total_size, enc.n_features_per_level), np.float64)
+    np.add.at(want, ids.numpy(), terms.numpy().astype(np.float64))
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    np.testing.assert_allclose(got.numpy(), want, rtol=2.0**-23, atol=1e-30)
+    plain = he.hash_encode_table_grad_reference(enc, xt, gt)
+    assert bool(((plain - got).abs() <= he.atomic_sum_bound(he.table_grad_abs_sum(enc, xt, gt))).all())
+
+
 def test_cpu_path_does_not_count_launches():
     enc, _, x, table, g = _inputs(CONFIGS["d2"])
     he.reset_launches()
