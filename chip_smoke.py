@@ -215,6 +215,18 @@ Phases, each printed with its time as it ends:
      JAX script's, every number is finite, the document has each section
      whose data is present, every fit ran on the card, and kernels 1, 2, 5
      and 6 launched; each row's wall, steps/s and PSNR are printed;
+   - scripts (after the experiment layer; its wall time printed): on the same
+     synthetic volume, the occlusion probe (``experiments.occlusion_probe``
+     at its published widths, 4 seeds of one warp epoch, the fit cache off:
+     kernels 1-2 once a step), the stacking analysis
+     (``experiments.stacking_analysis.main``: a short sweep, ``--gated``,
+     ``--uncertainty``, on a cache of the port's linear and cubic families
+     and a noisy linear one; its SSIM on the card, its panel a PNG), the
+     sharded-4D validation (``experiments.validate_sharded_4d.validate``:
+     the 4-D F = 8 table over 8 gloo ranks sharing the card, the JAX run's
+     plan record, the encode against kernel 1, each rank's launches) and
+     the tutorial notebook's cells at EPOCHS = 12 on the card, each a path
+     (``scripts_*``) with exact launch counts;
 6. profile: device time by kernel over 20 training steps of each path (one
    epoch of 15 frames for the multi-frame models) and one grid evaluation
    of the flagship, paths A and B, ngp, protocol_tv, hash_siren and
@@ -3168,6 +3180,203 @@ def drive_experiments(torch, zero: dict, paths: dict) -> None:
         f"{len(text.splitlines())} lines")
 
 
+# the scripts phase: the occlusion probe, the stacking analysis, the sharded-4D validation and the tutorial notebook
+SCRIPTS_PROBE_STEPS = 8 * 352 * 352 // 10_000  # 99: a warp fit's one epoch on the 8 even frames at batch 10,000
+# the notebook at EPOCHS = 12 on its (24, 24, 12) volume, 3 steps an epoch at batch 2048: SIREN 36 steps and one
+# grid chunk (kernels 5-6); the two 4-level hash MLPs 72 steps and one grid chunk each (kernels 1-2 and 5-6; a
+# hashed level, so kernel 1 per chunk); the protocol's 3-level one 24 steps of its 3,456 even-frame rows and its
+# grid on the separable route (all levels dense: kernel 5 alone). The ReLU MLP, RFF and modulated SIREN run none.
+SCRIPTS_NOTEBOOK_LAUNCHES = {"hash_encode_forward": 73 + 73 + 24, "hash_encode_table_grad": 72 + 72 + 24,
+                             "fused_mlp_forward": 37 + 73 + 73 + 25, "fused_mlp_backward": 36 + 72 + 72 + 24}
+# validate_sharded_4d on each of its 8 ranks: kernel 1 once (the single-table oracle), kernels 5-6 on each of
+# the sharded fit's 16 steps (2 epochs of 32,768 rows at batch 4,096; the sharded encode itself is plain torch)
+SCRIPTS_SHARDED_RANK_LAUNCHES = {"hash_encode_forward": 1, "fused_mlp_forward": 16, "fused_mlp_backward": 16}
+SCRIPTS_SHARDED_RECORD = {"table_rows": 14_544_970, "table_mb": 443.9, "per_device_mb": 63.4,
+                          "split_dense_levels": [2, 3]}  # runs/sharded_4d_validation.json, the JAX run's record
+
+
+def write_stacking_cache(cache_dir: str, img: np.ndarray) -> None:
+    """Fold and deploy predictions in the port's cache layout for the
+    stacking analysis: the port's linear and cubic families and a noisy
+    linear one (seeded Gaussian noise of 0.05), through ``stacked_fuse``."""
+    from mri_interpolation_tpu_torch.io import even_frame_split
+    from mri_interpolation_tpu_torch.train import stacking as stk
+
+    train, _ = even_frame_split(img)
+    t_full = img.shape[-1]
+    t_keep = np.asarray([2 * j / (t_full - 1) for j in range(train.shape[-1])])
+    t_odd = np.asarray([(2 * j + 1) / (t_full - 1) for j in range(t_full // 2)])
+    linear = stk._linear_family()
+
+    def noisy(frames, tk, te):
+        base = linear(frames, tk, te)
+        rng = np.random.default_rng(len(tk) * 1000 + int(round(float(te[0]) * 997)))
+        return (base + 0.05 * rng.standard_normal(base.shape)).astype(np.float32)
+
+    stk.stacked_fuse(train, t_keep, t_odd, {"linear": linear, "cubic": stk._cubic_family(), "noisy_linear": noisy},
+                     cache_dir=cache_dir)
+
+
+def drive_scripts(torch, zero: dict, paths: dict) -> None:
+    """The last four JAX scripts' ports on the card, each a path with the
+    counters at 0 just before and read just after, on drive_experiments'
+    SYNTHETIC (352, 352, 6, 15) volume (seed 17; its z = 3 slice):
+
+    - scripts_occlusion: ``experiments.occlusion_probe.occlusion_probe`` at
+      WK's widths, 4 seeds of one warp epoch (``cosine_t_max`` 1), the
+      warp-fit disk cache off and the memo cleared (so every fit trains), a
+      ``deploy_warp`` stand-in (the odd frames plus seeded noise) in the
+      temporary cache so that the two INR-arbiter rows run; checks all 8
+      numbers finite and kernels 1 and 2 once a training step;
+    - scripts_stacking: ``experiments.stacking_analysis.main`` on a cache of
+      three families (:func:`write_stacking_cache`): a short (lam, shrink)
+      sweep, then --gated, then --uncertainty; checks the nested MSEs finite,
+      one selected row each with its SSIM computed on the card, the panel a
+      PNG of 3 tiles of (352, 352), no kernel;
+    - scripts_sharded4d: ``experiments.validate_sharded_4d.validate`` at the
+      full 4-D F = 8 geometry over 8 gloo ranks sharing the card; checks the
+      JAX run's record (rows, MiB, per-rank MiB, split levels), the encode
+      within 1e-5 of kernel 1 (inside ``validate``), the loss finite and
+      falling, every rank on the card, each rank's launches;
+    - scripts_notebook: ``examples/tutorial.ipynb``'s code cells in one
+      namespace on ``cuda`` at EPOCHS = 12; checks the cells' own assertion
+      (SIREN and hash grid above 20 dB), the 2x time axis, and the launches.
+
+    Every fit in this process (the probe's and the notebook's) must run on
+    the card."""
+    import dataclasses
+
+    from mri_interpolation_tpu_torch.examples import make_tutorial_notebook as mk
+    from mri_interpolation_tpu_torch.experiments import common, occlusion_probe, stacking_analysis, validate_sharded_4d
+    from mri_interpolation_tpu_torch.io import nifti, synthetic_volume
+    from mri_interpolation_tpu_torch.train import stacking as stk
+    from mri_interpolation_tpu_torch.train import trainer as trainer_mod
+
+    fit_devices, ssim_devices = [], []
+    fit, ssim = trainer_mod.Trainer.fit, stacking_analysis.evaluate_reconstruction
+
+    def spied_fit(self, model, *args, **kw):
+        result = fit(self, model, *args, **kw)
+        fit_devices.append(next(model.parameters()).device.type)
+        return result
+
+    def spied_ssim(pred, target, data_range=1.0, device=None):
+        ssim_devices.append(torch.device(device).type)
+        return ssim(pred, target, data_range=data_range, device=device)
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_scripts_") as tmp:
+        t0 = time.perf_counter()
+        path = os.path.join(tmp, "synthetic_352x352x6x15.nii")
+        nifti.save(synthetic_volume(EXPERIMENTS_VOLUME, seed=17), path)
+        img = common.load_volume(path, slice_axes=common.SLICE).image()
+        probe_cache, stack_cache = os.path.join(tmp, "probe_cache"), os.path.join(tmp, "stack_cache")
+        odd = img[..., 1::2]
+        stk._cached_call(probe_cache, "deploy_warp", lambda: (
+            odd + 0.03 * np.random.default_rng(9).standard_normal(odd.shape)).astype(np.float32))
+        write_stacking_cache(stack_cache, img)
+        log(f"[scripts] SYNTHETIC volume {EXPERIMENTS_VOLUME} (seed 17), its z = 3 slice {img.shape}, and the caches "
+            f"written in {time.perf_counter() - t0:.1f} s")
+        out_dir = os.path.join(tmp, "results")
+        trainer_mod.Trainer.fit = spied_fit
+        stacking_analysis.evaluate_reconstruction = spied_ssim
+        disk = stk._FIT_DISK_DIR
+        stk._FIT_DISK_DIR = ""
+        stk._FIT_MEMO.clear()
+        try:
+            cfg = dataclasses.replace(occlusion_probe.CFG, epochs=1, cosine_t_max=1)
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                probe, seconds, launches = counted(lambda: occlusion_probe.occlusion_probe(
+                    img, cfg=cfg, cache_dir=probe_cache, device="cuda"))
+            paths["scripts_occlusion"] = {"wall_s": seconds, "launches": launches, "probe": probe}
+            progress = [ln for ln in buf.getvalue().splitlines() if ln.startswith(("seed", "photometric"))]
+            log(f"[scripts_occlusion] {seconds:.1f} s (its clock: {'; '.join(progress)}); launches {launches}; "
+                f"{json.dumps(probe)}")
+            steps = len(occlusion_probe.SEEDS) * SCRIPTS_PROBE_STEPS
+            want = {**zero, "hash_encode_forward": steps, "hash_encode_table_grad": steps}
+            if (launches != want or len(probe) != 8 or not all(math.isfinite(v) for v in probe.values())
+                    or fit_devices != ["cuda"] * len(occlusion_probe.SEEDS)):
+                fail(f"scripts_occlusion: launches {launches} (expected {want}), probe {probe}, fits on {fit_devices}")
+
+            printed = {}
+            for name, flags in (("sweep", ["--lams", "0,1", "--shrinks", "0,0.5"]), ("gated", ["--gated"]),
+                                ("uncertainty", ["--uncertainty"])):
+                buf = io.StringIO()
+                with contextlib.redirect_stdout(buf):
+                    _, seconds, launches = counted(lambda: stacking_analysis.main([
+                        "--image_path", path, "--cache_dir", stack_cache, *flags, "--out_dir", out_dir,
+                        "--device", "cuda"]))
+                printed[name] = buf.getvalue().splitlines()
+                paths[f"scripts_stacking_{name}"] = {"wall_s": seconds, "launches": launches}
+                log(f"[scripts_stacking] {name}: {seconds:.1f} s; launches {launches}")
+                if launches != zero:
+                    fail(f"scripts_stacking {name}: launches {launches}; it runs no kernel")
+        finally:
+            stk._FIT_DISK_DIR = disk
+            trainer_mod.Trainer.fit = fit
+            stacking_analysis.evaluate_reconstruction = ssim
+        rows = {name: [json.loads(ln) for ln in lines if ln.startswith("{")] for name, lines in printed.items()}
+        for name in ("sweep", "gated"):
+            nested = [r["nested_mse"] for r in rows[name] if "nested_mse" in r]
+            selected = [r for r in rows[name] if r.get("selected")]
+            if (len(nested) != {"sweep": 8, "gated": 16}[name] or not all(math.isfinite(v) for v in nested)
+                    or len(selected) != 1 or not math.isfinite(selected[0]["odd_ssim"])):
+                fail(f"scripts_stacking {name}: nested MSEs {nested}, selected {selected}")
+            log(f"[scripts_stacking] {name}: nested MSE {min(nested):.6g} .. {max(nested):.6g}; selected "
+                f"{json.dumps(selected[0])}")
+        panel_path = rows["uncertainty"][-1].get("panel")
+        panel = read_png(panel_path) if panel_path and os.path.exists(panel_path) else None
+        if (panel is None or panel.shape != (352, 3 * 352 + 8, 3) or ssim_devices != ["cuda", "cuda"]
+                or not panel_path.startswith(out_dir)):
+            fail(f"scripts_stacking: panel {panel_path} {None if panel is None else panel.shape}; SSIM on "
+                 f"{ssim_devices}")
+        log(f"[scripts_stacking] uncertainty {json.dumps(rows['uncertainty'][:-1])}; panel {panel.shape} PNG; the "
+            f"selected rows' SSIM on {ssim_devices}")
+
+    rec, seconds, _ = counted(lambda: validate_sharded_4d.validate(device="cuda"))
+    launches = {k: sum(r.get(k, 0) for r in rec["launches_by_rank"]) for k in zero}
+    paths["scripts_sharded4d"] = {"wall_s": seconds, "launches": launches,
+                                  "launches_by_rank": rec["launches_by_rank"],
+                                  "record": {k: rec[k] for k in validate_sharded_4d.RECORD_KEYS}}
+    log(f"[scripts_sharded4d] {seconds:.1f} s with the 8 ranks' start; {json.dumps(paths['scripts_sharded4d']['record'])}"
+        f"; loads {rec['loads']}; losses {[round(x, 5) for x in rec['losses']]}; ranks on {sorted(set(rec['rank_devices']))}"
+        f"; launches {launches}")
+    want_rank = {**zero, **SCRIPTS_SHARDED_RANK_LAUNCHES}
+    if ({k: rec[k] for k in SCRIPTS_SHARDED_RECORD} != SCRIPTS_SHARDED_RECORD or rec["mesh_devices"] != 8
+            or not rec["encode_parity_max_abs_err"] < 1e-5 or rec["rank_devices"] != ["cuda:0"] * 8
+            or any({**zero, **r} != want_rank for r in rec["launches_by_rank"])):
+        fail(f"scripts_sharded4d: {json.dumps({k: v for k, v in rec.items() if k != 'losses'})}; expected "
+             f"{SCRIPTS_SHARDED_RECORD} and {want_rank} a rank")
+
+    fit_devices.clear()
+    trainer_mod.Trainer.fit = spied_fit
+    ns = {}
+
+    with open(mk.NOTEBOOK) as f:
+        cells = mk.code_cells(json.load(f))
+
+    def notebook():
+        for i, src in enumerate(cells):
+            exec(compile(src.replace("EPOCHS = 40", "EPOCHS = 12"), f"<tutorial.ipynb cell {i}>", "exec"), ns)
+
+    try:
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            _, seconds, launches = counted(notebook)
+    finally:
+        trainer_mod.Trainer.fit = fit
+    paths["scripts_notebook"] = {"wall_s": seconds, "launches": launches,
+                                 "psnr": {k: float(ns[k]) for k in ("p_mlp", "p_rff", "p_siren", "p_mod", "p_hash")},
+                                 "odd_psnr": ns["q"]["odd"]["psnr"]}
+    log(f"[scripts_notebook] {seconds:.1f} s; launches {launches}; PSNR {json.dumps(paths['scripts_notebook']['psnr'])}"
+        f", held-out odd {ns['q']['odd']['psnr']:.2f} dB; upsampled {ns['upsampled'].shape}")
+    want = {**zero, **SCRIPTS_NOTEBOOK_LAUNCHES}
+    if (ns["DEVICE"] != "cuda" or launches != want or ns["upsampled"].shape != ns["shape"][:-1] + (2 * ns["shape"][-1],)
+            or not ns["p_siren"] > 20 or not ns["p_hash"] > 20 or fit_devices != ["cuda"] * 7):
+        fail(f"scripts_notebook: launches {launches} (expected {want}), upsampled {ns['upsampled'].shape}, fits on "
+             f"{fit_devices}")
+
+
 def main() -> int:
     import torch
 
@@ -3327,6 +3536,11 @@ def main() -> int:
     t0 = time.perf_counter()
     drive_experiments(torch, zero, paths)
     log(f"[experiments] done in {time.perf_counter() - t0:.1f} s")
+
+    # the last four scripts: the occlusion probe, the stacking analysis, the sharded-4D validation, the notebook
+    t0 = time.perf_counter()
+    drive_scripts(torch, zero, paths)
+    log(f"[scripts] done in {time.perf_counter() - t0:.1f} s")
 
     # 6. where the time goes: device time by kernel over short fits and grid evaluations
     t0 = time.perf_counter()

@@ -415,8 +415,8 @@ def render_results_md(out: dict) -> str:
             " Conclusion: the aligned resamples differ by noise, not by"
             " detectable occlusion; through-plane content change (the real"
             " failure mode) is invisible from a single 2D slice by"
-            " construction. Reproduce: `python scripts/occlusion_probe.py` (the JAX"
-            " package's; not yet ported).",
+            " construction. Reproduce: `python -m"
+            " mri_interpolation_tpu_torch.experiments.occlusion_probe`.",
         ]
 
     roofline = out.get("roofline")

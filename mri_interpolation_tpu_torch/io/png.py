@@ -16,9 +16,10 @@ so it writes the pixels itself:
   graphic-control extension with the frame delay, and each frame's pixels
   LZW-compressed with variable code widths of 9 to 12 bits, a clear code
   when the table is full);
-- :data:`VIRIDIS`: matplotlib's ``viridis`` colormap as the 256 RGB bytes
-  ``colormaps["viridis"](range(256), bytes=True)`` gives, kept here as a
-  constant, and :data:`GRAY` a 256-level gray ramp; :func:`colorize` maps an array
+- :data:`VIRIDIS` and :data:`MAGMA`: matplotlib's ``viridis`` and
+  ``magma`` colormaps as the 256 RGB bytes ``colormaps[name](range(256),
+  bytes=True)`` gives (matplotlib 3.10.8), kept here as constants, and
+  :data:`GRAY` a 256-level gray ramp; :func:`colorize` maps an array
   min-max onto such a table as matplotlib's ``Colormap`` indexes
   (``floor(x * 256)``, 1.0 to the last entry);
   :func:`to_gray` maps min-max to ``uint8`` as the JAX package's GIF
@@ -33,7 +34,7 @@ from typing import Dict, Optional, Sequence
 
 import numpy as np
 
-__all__ = ["write_png", "write_gif", "VIRIDIS", "GRAY", "colorize", "to_gray"]
+__all__ = ["write_png", "write_gif", "VIRIDIS", "MAGMA", "GRAY", "colorize", "to_gray"]
 
 _PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 
@@ -57,6 +58,26 @@ _VIRIDIS_HEX = (
     "d7e219dae218dce218dfe318e1e318e4e318e7e419e9e419ece41aeee51bf1e51cf3e51ef6e61ff8e621fae622fde724"
 )
 VIRIDIS = np.frombuffer(bytes.fromhex(_VIRIDIS_HEX), dtype=np.uint8).reshape(256, 3)
+# matplotlib's magma, colormaps["magma"](np.arange(256), bytes=True)[:, :3], row-major RGB
+_MAGMA_HEX = (
+    "00000300000400000601000701010901010b02020d02020f03031104031304041505041706051907051b08061d09071f"
+    "0a07220b08240c09260d0a280e0a2a0f0b2c100c2f110c31120d33140d35150e38160e3a170f3c180f3f1a10411b1044"
+    "1c10461e10491f114b20114d2211502311522511552611572811592a115c2b115e2d10602f1062301065321067341068"
+    "350f6a370f6c390f6e3b0f6f3c0f713e0f72400f73420f74430f75450f76470f774810784a10794b10794d117a4f117b"
+    "50127b52127c53137c55137d57147d58157e5a157e5b167e5d177e5e177f60187f61187f63197f651a80661a80681b80"
+    "691c806b1c806c1d806e1e816f1e81711f81731f817420817621817721817922817a22817c23817e24817f2481812581"
+    "8225818426818526818727818928818a28818c29808d29808f2a80912a80922b80942b80952c80972c7f992d7f9a2d7f"
+    "9c2e7f9e2e7e9f2f7ea12f7ea3307ea4307da6317da7317da9327cab337cac337bae347bb0347bb1357ab3357ab53679"
+    "b63679b83778b93778bb3877bd3977be3976c03a75c23a75c33b74c53c74c63c73c83d72ca3e72cb3e71cd3f70ce4070"
+    "d0416fd1426ed3426dd4436dd6446cd7456bd9466ada4769dc4869dd4968de4a67e04b66e14c66e24d65e44e64e55063"
+    "e65162e75262e85461ea5560eb5660ec585fed595fee5b5eee5d5def5e5df0605df1615cf2635cf3655cf3675bf4685b"
+    "f56a5bf56c5bf66e5bf6705bf7715bf7735cf8755cf8775cf9795cf97b5df97d5dfa7f5efa805efa825ffb8460fb8660"
+    "fb8861fb8a62fc8c63fc8e63fc9064fc9265fc9366fd9567fd9768fd9969fd9b6afd9d6bfd9f6cfda16efda26ffda470"
+    "fea671fea873feaa74feac75feae76feaf78feb179feb37bfeb57cfeb77dfeb97ffebb80febc82febe83fec085fec286"
+    "fec488fec689fec78bfec98dfecb8efdcd90fdcf92fdd193fdd295fdd497fdd698fdd89afdda9cfddc9dfddd9ffddfa1"
+    "fde1a3fce3a5fce5a6fce6a8fce8aafceaacfcecaefceeb0fcf0b1fcf1b3fcf3b5fcf5b7fbf7b9fbf9bbfbfabdfbfcbf"
+)
+MAGMA = np.frombuffer(bytes.fromhex(_MAGMA_HEX), dtype=np.uint8).reshape(256, 3)
 # a gray ramp, entry i is (i, i, i) (matplotlib's gray, whose bytes truncate, is within one level of it)
 GRAY = np.repeat(np.arange(256, dtype=np.uint8)[:, None], 3, axis=1)
 

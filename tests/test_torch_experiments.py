@@ -344,6 +344,9 @@ def test_renderer_reproduces_every_table_of_the_committed_results(jexp, monkeypa
         assert not re.search(rf"\b{word}\b", prose), word
     peaks = out["roofline"]["chip_peaks"]
     assert f"by the {peaks['chip']} peaks recorded with the points ({peaks['hbm_gb_per_s']} GB/s HBM," in text
+    # the occlusion probe is the port's now
+    assert "Reproduce: `python -m mri_interpolation_tpu_torch.experiments.occlusion_probe`." in text
+    assert "not yet ported" not in text and "scripts/occlusion_probe.py" not in text
 
 
 def test_renderer_reads_the_ports_roofline_peaks():

@@ -4,11 +4,13 @@ its kernels are built without PyTorch's extension machinery, and its entry
 points run on the card unless the CPU is asked for."""
 
 import ast
+import json
 import os
 import pkgutil
 import subprocess
 import sys
 from pathlib import Path
+from typing import Optional
 
 import numpy as np
 import pytest
@@ -43,11 +45,13 @@ def _package_files(root: Path):
 
 
 PORT_FILES = _package_files(PORT_DIR) + [REPO / "chip_smoke.py"]
+NOTEBOOK = PORT_DIR / "examples" / "tutorial.ipynb"
+NOTEBOOK_CELLS = ["".join(c["source"]) for c in json.loads(NOTEBOOK.read_text())["cells"] if c["cell_type"] == "code"]
 TINY = dict(base_resolution=(2, 2, 2), finest_resolution=(4, 4, 4), dim_hidden=4)
 
 
-def _imported_modules(path: Path):
-    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+def _imported_modules(path: Path, source: Optional[str] = None):
+    for node in ast.walk(ast.parse(path.read_text() if source is None else source, filename=str(path))):
         if isinstance(node, ast.Import):
             yield from (alias.name for alias in node.names)
         elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
@@ -59,6 +63,12 @@ def test_no_jax_import(path):
     for module in _imported_modules(path):
         top = module.split(".")[0]
         assert top not in FORBIDDEN, f"{path.relative_to(REPO)} imports {module}"
+
+
+@pytest.mark.parametrize("cell", range(len(NOTEBOOK_CELLS)), ids=lambda i: f"tutorial.ipynb code cell {i}")
+def test_no_jax_import_in_the_notebook(cell):
+    for module in _imported_modules(NOTEBOOK, NOTEBOOK_CELLS[cell]):
+        assert module.split(".")[0] not in FORBIDDEN, f"tutorial.ipynb code cell {cell} imports {module}"
 
 
 def test_import_loads_no_jax():
@@ -475,6 +485,30 @@ def test_slice_thirteen_entry_points_raise_without_a_card(no_card, tmp_path, mon
                                      interp_shapes=(), shard_tables=True, data_parallel=True, **TINY), device="cpu")
     assert summary["steps"] == 4 and summary["world_size"] == 1
     assert set(he.LAUNCHES.values()) == {0} and set(fm.LAUNCHES.values()) == {0}
+
+
+def test_slice_fifteen_entry_points_raise_without_a_card(no_card, tmp_path, monkeypatch):
+    """The occlusion probe, the stacking analysis, the sharded-4D validation
+    and the notebook's cells run on the card or raise, and write nothing
+    before the refusal."""
+    from mri_interpolation_tpu_torch.experiments import common, occlusion_probe, stacking_analysis, validate_sharded_4d
+    from mri_interpolation_tpu_torch.io import dataset_from_array, synthetic_volume
+
+    image = dataset_from_array(synthetic_volume((8, 8, 5), seed=0)).image()
+    monkeypatch.setattr(common, "load_volume", lambda *a, **k: dataset_from_array(synthetic_volume((8, 8, 5), seed=0)))
+    out = str(tmp_path / "out")
+    for call in (lambda: occlusion_probe.occlusion_probe(image, seeds=(1,), cache_dir=None),
+                 lambda: occlusion_probe.main(["--out_dir", out]),
+                 lambda: stacking_analysis.main(["--cache_dir", str(tmp_path), "--out_dir", out]),
+                 lambda: validate_sharded_4d.validate(world=2),
+                 lambda: validate_sharded_4d.main(["--out_dir", out])):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    ns = {}
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        for i, src in enumerate(NOTEBOOK_CELLS):  # DEVICE = "cuda": the first model raises
+            exec(compile(src.replace("EPOCHS = 40", "EPOCHS = 1"), f"<cell {i}>", "exec"), ns)  # noqa: S102
+    assert "p_mlp" not in ns and list(tmp_path.iterdir()) == []
 
 
 def test_evaluate_grid_refuses_a_model_on_another_device():
