@@ -27,6 +27,7 @@ import torch
 
 from ..device import DeviceLike, resolve_device
 from ..models.core import Model
+from ..tracing import span
 
 __all__ = ["flat_index_to_coords", "evaluate_grid", "device_eval_seconds", "has_split", "predict_batched"]
 
@@ -74,13 +75,14 @@ def _eval_chunks(model: Model, n: int, chunk_size: int, dev: torch.device,
     model.eval()
     try:
         for c in range(n_chunks):
-            start, stop = c * chunk_size, (c + 1) * chunk_size
-            y, z = chunk_eval(start, stop)
-            out[start:stop] = y
-            if z is not None:
-                if latents is None:
-                    latents = torch.empty((len(out), z.shape[-1]), dtype=torch.float32, device=dev)
-                latents[start:stop] = z
+            with span("mri.grid.chunk"):
+                start, stop = c * chunk_size, (c + 1) * chunk_size
+                y, z = chunk_eval(start, stop)
+                out[start:stop] = y
+                if z is not None:
+                    if latents is None:
+                        latents = torch.empty((len(out), z.shape[-1]), dtype=torch.float32, device=dev)
+                    latents[start:stop] = z
     finally:
         model.train(was_training)
     return out[:n], (None if latents is None else latents[:n])
@@ -111,7 +113,8 @@ def _grid_on_device(model: Model, shape, lo: float, hi: float, chunk_size: int, 
     geometry = getattr(getattr(model, "encoder", None), "geometry", None)
     if (split and transform is None and lo == 0.0 and hi == 1.0 and geometry is not None
             and geometry.supports_grid_path()):
-        z = geometry.apply_grid(model.encoder.table.float(), shape, lo, hi)  # (n, L*F), once for the grid
+        with span("mri.grid.encode"):
+            z = geometry.apply_grid(model.encoder.table.float(), shape, lo, hi)  # (n, L*F), once for the grid
         y, _ = _eval_chunks(model, n, chunk_size, dev,
                             lambda start, stop: (_decode_weighted(model, _padded_chunk(z[start:stop], stop - start)),
                                                  None))
@@ -161,24 +164,25 @@ def evaluate_grid(model: Model, shape: Sequence[int], lo: float = 0.0, hi: float
     """
     if transport not in ("f32", "u16"):
         raise ValueError(f"unknown transport {transport!r}")
-    dev = resolve_device(device)
-    _check_model_on(model, dev)
-    shape = tuple(int(s) for s in shape)
-    y, z = _grid_on_device(model, shape, lo, hi, chunk_size, dev, frame_idx, transform, return_latents)
+    with span("mri.grid.request"):
+        dev = resolve_device(device)
+        _check_model_on(model, dev)
+        shape = tuple(int(s) for s in shape)
+        y, z = _grid_on_device(model, shape, lo, hi, chunk_size, dev, frame_idx, transform, return_latents)
 
-    def to_volume(arr: np.ndarray) -> np.ndarray:
-        return arr.reshape(shape) if arr.shape[-1] == 1 else arr.reshape(shape + (arr.shape[-1],))
+        def to_volume(arr: np.ndarray) -> np.ndarray:
+            return arr.reshape(shape) if arr.shape[-1] == 1 else arr.reshape(shape + (arr.shape[-1],))
 
-    if transport == "u16":
-        q, vlo, vhi = _quantise_u16(y)
-        vlo, vhi = float(vlo), float(vhi)
-        codes = q.cpu().numpy().astype(np.int32) + 32768
-        vol = codes.astype(np.float32) * ((vhi - vlo) / 65535.0) + vlo
-    else:
-        vol = y.cpu().numpy()
-    if return_latents:
-        return to_volume(vol), to_volume(z.cpu().numpy())
-    return to_volume(vol)
+        with span("mri.grid.to_host"):
+            if transport == "u16":
+                q, vlo, vhi = _quantise_u16(y)
+                vlo, vhi = float(vlo), float(vhi)
+                codes = q.cpu().numpy().astype(np.int32) + 32768
+                vol = codes.astype(np.float32) * ((vhi - vlo) / 65535.0) + vlo
+            else:
+                vol = y.cpu().numpy()
+            latents = z.cpu().numpy() if return_latents else None
+        return (to_volume(vol), to_volume(latents)) if return_latents else to_volume(vol)
 
 
 @torch.no_grad()

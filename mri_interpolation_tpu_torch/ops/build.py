@@ -24,6 +24,8 @@ from typing import Dict, Optional
 
 import torch
 
+from ..tracing import span
+
 __all__ = ["SOURCES", "BUILD_DIR", "NVCC_FLAGS", "H100_SMS", "find_nvcc", "compile_sources", "load", "build_logs",
            "sm_count", "check_tensor"]
 
@@ -102,10 +104,11 @@ def load(name: str) -> ctypes.CDLL:
     is not built yet, in parallel. The caller declares argtypes."""
     lib = _loaded.get(name)
     if lib is None:
-        pending = {n: s for n, s in SOURCES.items() if n not in _loaded}
-        for n, path in compile_sources(pending).items():
-            _loaded[n] = ctypes.CDLL(str(path))
-        lib = _loaded[name]
+        with span("mri.op.build"):
+            pending = {n: s for n, s in SOURCES.items() if n not in _loaded}
+            for n, path in compile_sources(pending).items():
+                _loaded[n] = ctypes.CDLL(str(path))
+            lib = _loaded[name]
     return lib
 
 

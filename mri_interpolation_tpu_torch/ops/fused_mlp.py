@@ -41,6 +41,7 @@ from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
+from ..tracing import span
 from . import build
 from .build import H100_SMS
 
@@ -382,7 +383,7 @@ def _forward_kernel(weights, biases, x, acts) -> torch.Tensor:
     # the split weights' scratch; none where no layer takes the tensor cores (a relu stack), which the
     # kernel's host side accepts (csrc/fused_mlp.cu:pack_forward)
     split = torch.empty((plan.split_words, 4), dtype=torch.int32, device=x.device) if plan.split_words else None
-    with torch.cuda.device(x.device):
+    with span("mri.op.launch"), torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.fused_mlp_forward(x.data_ptr(), out.data_ptr(), n, len(weights),
                                     *_layer_arrays(dims, acts, weights, biases), forward_plan_words(plan),
@@ -404,7 +405,7 @@ def _backward_kernel(weights, biases, x, g, acts, need_dx):
     dact, dzs = (torch.empty((rows, width), dtype=torch.float32, device=x.device) for _ in range(2))
     hact = torch.empty((rows, hidden), dtype=torch.float32, device=x.device)
     lib = _library()
-    with torch.cuda.device(x.device):
+    with span("mri.op.launch"), torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.fused_mlp_backward(
             x.data_ptr(), g.data_ptr(), dx.data_ptr() if need_dx else None, dact.data_ptr(), hact.data_ptr(),

@@ -30,6 +30,7 @@ import numpy as np
 import torch
 
 from ..encodings.hashgrid import HashGridEncoding
+from ..tracing import span
 from . import build
 from .build import H100_SMS
 
@@ -233,7 +234,7 @@ def _launch(fn_name: str, a: torch.Tensor, b: torch.Tensor, out: torch.Tensor,
     lib = _library()
     consts = enc.kernel_constants if consts is None else consts
     extra = () if words is None else (words.ctypes.data,)
-    with torch.cuda.device(a.device):
+    with span("mri.op.launch"), torch.cuda.device(a.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = getattr(lib, fn_name)(a.data_ptr(), b.data_ptr(), out.data_ptr(), a.shape[0],
                                     enc.input_dim, enc.n_features_per_level, consts.shape[0],

@@ -66,6 +66,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..device import DeviceLike, resolve_device
 from ..models.core import Model
+from ..tracing import span
 from .losses import get_loss
 
 __all__ = ["TrainConfig", "TrainResult", "Trainer", "EpochHooks", "make_optimizer", "make_schedule",
@@ -428,11 +429,14 @@ def _take_step(model: Model, loss_fn: Callable, updates: "_Updates", x: torch.Te
                remat: bool, mean: Optional[Callable[[torch.Tensor], torch.Tensor]] = None) -> torch.Tensor:
     """One mini-step: loss, backward, ``mean`` over the ranks (if any), the
     optimizer chain; the (mean) loss, detached."""
-    loss = _step_loss(model, loss_fn, x, y, remat)
-    updates.zero_grad()
-    loss.backward()
-    loss = loss.detach() if mean is None else mean(loss.detach())
-    updates.step()
+    with span("mri.train.forward"):
+        loss = _step_loss(model, loss_fn, x, y, remat)
+    with span("mri.train.backward"):
+        updates.zero_grad()
+        loss.backward()
+        loss = loss.detach() if mean is None else mean(loss.detach())
+    with span("mri.train.optimizer"):
+        updates.step()
     return loss
 
 
@@ -460,7 +464,8 @@ def _after_epoch(hooks: Optional[EpochHooks], e: int, losses: np.ndarray, model:
     if hooks is None:
         return 0.0
     th = time.perf_counter()
-    hooks.after_epoch(e, losses, model, updates.state_dict)
+    with span("mri.train.hooks"):
+        hooks.after_epoch(e, losses, model, updates.state_dict)
     return time.perf_counter() - th
 
 
@@ -513,19 +518,22 @@ class Trainer:
         try:
             for e in range(cfg.epochs):
                 te = time.perf_counter()
-                if cfg.shuffle:
-                    perm = torch.randperm(n, generator=gen, device=dev)
-                else:
-                    perm = torch.arange(n, device=dev)
-                pad = steps_per_epoch * batch - n
-                if pad > 0:  # drop_last=False: wrap the final batch around
-                    perm = torch.cat([perm, perm[:pad]])
-                idx = perm[: steps_per_epoch * batch].view(steps_per_epoch, ranks.world, -1)[:, ranks.rank]
-                losses = torch.empty(steps_per_epoch, device=dev)
+                with span("mri.train.shuffle"):
+                    if cfg.shuffle:
+                        perm = torch.randperm(n, generator=gen, device=dev)
+                    else:
+                        perm = torch.arange(n, device=dev)
+                    pad = steps_per_epoch * batch - n
+                    if pad > 0:  # drop_last=False: wrap the final batch around
+                        perm = torch.cat([perm, perm[:pad]])
+                    idx = perm[: steps_per_epoch * batch].view(steps_per_epoch, ranks.world, -1)[:, ranks.rank]
+                    losses = torch.empty(steps_per_epoch, device=dev)
                 for s in range(steps_per_epoch):
-                    losses[s] = _take_step(model, loss_fn, updates, coords_d[idx[s]], values_d[idx[s]], cfg.remat,
-                                           ranks.mean)
-                epoch_losses = losses.cpu().numpy()  # the epoch's one host sync
+                    with span("mri.train.step"):
+                        losses[s] = _take_step(model, loss_fn, updates, coords_d[idx[s]], values_d[idx[s]],
+                                               cfg.remat, ranks.mean)
+                with span("mri.train.sync"):
+                    epoch_losses = losses.cpu().numpy()  # the epoch's one host sync
                 epoch_times.append(time.perf_counter() - te)
                 all_losses.append(epoch_losses)
                 hook_s += _after_epoch(hooks, e, epoch_losses, model, updates)
@@ -603,11 +611,13 @@ class Trainer:
                     if s + 1 < n_shards:  # the next shard's host synthesis overlaps this one's steps
                         feed.submit(my_rows(perm[(s + 1) * shard:(s + 2) * shard]))
                     for j in range(steps_per_shard):
-                        rows = slice(j * local, (j + 1) * local)
-                        losses[s * steps_per_shard + j] = _take_step(model, loss_fn, updates, coords_d[rows],
-                                                                     values_d[rows], cfg.remat, ranks.mean)
+                        with span("mri.train.step"):
+                            rows = slice(j * local, (j + 1) * local)
+                            losses[s * steps_per_shard + j] = _take_step(model, loss_fn, updates, coords_d[rows],
+                                                                         values_d[rows], cfg.remat, ranks.mean)
                     del coords_d, values_d  # free this shard before the next one's copy allocates
-                epoch_losses = losses.cpu().numpy()  # the epoch's one host sync
+                with span("mri.train.sync"):
+                    epoch_losses = losses.cpu().numpy()  # the epoch's one host sync
                 epoch_times.append(time.perf_counter() - te)
                 streamed.append(feed.drain())
                 all_losses.append(epoch_losses)

@@ -44,7 +44,8 @@ def capture_trace(fn, outdir: str, *args, iters: int = 3, **kwargs):
     """Run ``fn(*args, **kwargs)`` ``iters`` times under ``torch.profiler``
     (the CPU, and CUDA where it is available), synchronising after each
     call, and write the trace as ``outdir/trace.json`` (Chrome trace
-    format: Perfetto or chrome://tracing). Returns fn's last result."""
+    format: Perfetto or chrome://tracing), the port's spans
+    (``tracing.SPANS``) among its host events. Returns fn's last result."""
     from torch.profiler import ProfilerActivity, profile
 
     os.makedirs(outdir, exist_ok=True)
