@@ -4,14 +4,24 @@ Port of ``mri_interpolation_tpu/infer/grid.py``: coordinates are made on the
 device from flat voxel indices (index -> mixed-radix digits -> linspace
 values), so a grid of any shape costs no host grid and no transfer but the
 result. The grid is walked in fixed chunks of ``chunk_size`` voxels, the
-padded tail repeating the last voxel. Each chunk's coordinates go through
-the model's forward, i.e. the hash-encode kernel on the card.
+padded tail repeating the last voxel. A request takes one of three routes,
+counted in :data:`ROUTES`:
 
-A model with the encode/decode split (:func:`has_split`) whose encoder is all
-dense takes the separable ``apply_grid`` path instead, as in the JAX package:
-the features of the whole grid are resampled one axis at a time, then decoded
-chunk by chunk. Both compute the same function: the tests hold ``apply_grid``
-equal to the per-point encode to 1e-6.
+- ``separable``: a model with the encode/decode split (:func:`has_split`)
+  whose encoder is all dense, on a [0, 1] grid with no ``transform``, as in
+  the JAX package: the features of the whole grid are resampled one axis at
+  a time (``apply_grid``), then decoded chunk by chunk. It computes the same
+  function as the per-point encode: the tests hold ``apply_grid`` equal to
+  it to 1e-6;
+- ``fused_grid``: a HashMLP with the fused decoder (``relu_plain``) and no
+  level anneal, with no ``transform``, ``frame_idx`` or ``return_latents``,
+  where the separable route does not apply: a chunk is one call of the op
+  ``hash_mlp_grid_forward`` (``ops/hash_mlp_grid.py``), kernel 1 making the
+  chunk's coordinates itself and kernel 5 writing the volume's rows, bit
+  for bit the ``chunked`` route's volume;
+- ``chunked``: everything else: each chunk's coordinates
+  (:func:`flat_index_to_coords`) go through the model's forward, the hash
+  encoder's kernel on the card, and the output is stored into the volume.
 
 ``predict_batched`` runs the same chunked forward over an explicit
 coordinate matrix (the launcher's periodic eval).
@@ -27,27 +37,22 @@ import torch
 
 from ..device import DeviceLike, resolve_device
 from ..models.core import Model
+from ..models.hash_mlp import HashGridEncoder, HashMLP, as_f32
+from ..ops import fused_mlp as fm
+from ..ops.hash_mlp_grid import flat_index_to_coords, grid_forward
 from ..tracing import span
 
-__all__ = ["flat_index_to_coords", "evaluate_grid", "device_eval_seconds", "has_split", "predict_batched"]
+__all__ = ["flat_index_to_coords", "evaluate_grid", "device_eval_seconds", "has_split", "predict_batched",
+           "ROUTES", "reset_routes"]
+
+# requests (calls of evaluate_grid and runs of device_eval_seconds) by the route they took, counted when the route is
+# chosen, in the style of the ops' LAUNCHES
+ROUTES = {"separable": 0, "fused_grid": 0, "chunked": 0}
 
 
-def flat_index_to_coords(flat_idx: torch.Tensor, shape: Sequence[int], lo: float = 0.0,
-                         hi: float = 1.0) -> torch.Tensor:
-    """C-order flat voxel indices -> (N, d) float32 grid coordinates, row
-    ``flat_idx`` of ``stack(meshgrid(*[linspace(lo, hi, s)])).reshape(-1, d)``
-    in the reference's float32 arithmetic."""
-    shape = tuple(int(s) for s in shape)
-    if int(np.prod(shape)) >= 2**31:
-        raise ValueError(f"grid {shape} exceeds int32 indexing; shard it first")
-    strides = np.concatenate([np.cumprod(shape[::-1])[::-1][1:], [1]]).astype(np.int64)
-    idx = flat_idx.to(torch.int64)
-    coords = []
-    for k, size in enumerate(shape):
-        digit = (idx // int(strides[k])) % size
-        denom = max(size - 1, 1)
-        coords.append(lo + (hi - lo) * digit.to(torch.float32) / denom)
-    return torch.stack(coords, dim=-1)
+def reset_routes() -> None:
+    for name in ROUTES:
+        ROUTES[name] = 0
 
 
 def _check_model_on(model: Model, dev: torch.device) -> None:
@@ -113,12 +118,18 @@ def _grid_on_device(model: Model, shape, lo: float, hi: float, chunk_size: int, 
     geometry = getattr(getattr(model, "encoder", None), "geometry", None)
     if (split and transform is None and lo == 0.0 and hi == 1.0 and geometry is not None
             and geometry.supports_grid_path()):
+        ROUTES["separable"] += 1
         with span("mri.grid.encode"):
             z = geometry.apply_grid(model.encoder.table.float(), shape, lo, hi)  # (n, L*F), once for the grid
         y, _ = _eval_chunks(model, n, chunk_size, dev,
                             lambda start, stop: (_decode_weighted(model, _padded_chunk(z[start:stop], stop - start)),
                                                  None))
         return y, (z if return_latents else None)
+    if (split and transform is None and not return_latents and isinstance(model, HashMLP) and model.fused
+            and isinstance(model.encoder, HashGridEncoder) and model.anneal_weights() is None):
+        ROUTES["fused_grid"] += 1
+        return _fused_grid(model, shape, lo, hi, chunk_size, dev), None
+    ROUTES["chunked"] += 1
 
     def chunk_coords(start: int, stop: int) -> torch.Tensor:
         flat = torch.arange(start, stop, device=dev).clamp_(max=n - 1)
@@ -133,6 +144,25 @@ def _grid_on_device(model: Model, shape, lo: float, hi: float, chunk_size: int, 
         return _decode_weighted(model, z), (z if return_latents else None)
 
     return _eval_chunks(model, n, chunk_size, dev, chunk_eval)
+
+
+def _fused_grid(model: HashMLP, shape, lo: float, hi: float, chunk_size: int, dev: torch.device) -> torch.Tensor:
+    """The ``fused_grid`` route: (n, dim_out) on ``dev``, one op call a
+    chunk, its arguments and feature buffer made once for the request."""
+    n = int(np.prod(shape))
+    chunk_size = min(chunk_size, n)
+    n_chunks = -(-n // chunk_size)
+    enc = model.encoder.geometry
+    out = torch.empty((n_chunks * chunk_size, model.dim_out), dtype=torch.float32, device=dev)
+    scratch = torch.empty((chunk_size, enc.output_dim), dtype=torch.float32, device=dev)
+    table = as_f32(model.encoder.table).detach()
+    params = [t.detach() for layer in model.layers for t in (layer.w, layer.b)]
+    acts = list(fm.act_words(fm.mlp_acts(len(model.layers) - 1, "relu")))
+    geometry, grid = list(enc.geometry_key()), list(shape)
+    for c in range(n_chunks):
+        with span("mri.grid.chunk"):
+            grid_forward(table, params, acts, geometry, grid, lo, hi, c * chunk_size, scratch, out)
+    return out[:n]
 
 
 def _quantise_u16(y: torch.Tensor):

@@ -8,7 +8,10 @@
   ``_forward_kernel`` / ``_backward_kernel`` of
   ``mri_interpolation_tpu/ops/pallas/fused_mlp.py``);
 - probe: y = 2 * x, the build check (replaces the Pallas probe ``trivial`` of
-  ``scripts/bench_pallas_exec.py``).
+  ``scripts/bench_pallas_exec.py``);
+- hash_mlp_grid: one chunk of a hash-MLP's dense grid as one op call,
+  kernel 1's grid variant (the coordinates made from the flat voxel index)
+  then kernel 5 (``infer/grid.py``'s ``fused_grid`` route).
 
 Sources live in ``csrc/`` and are built by ``build.py`` at first use.
 Kernels 1-6 are reached through the dispatcher ops ``torch.ops.mri_torch.*``

@@ -8,6 +8,10 @@
 //   hash_encode_coarse_forward_kernel    <- _onehot_forward_kernel  (_onehot_forward_call)
 //   hash_encode_coarse_table_grad_kernel <- _onehot_backward_kernel (_onehot_backward_call,
 //                                           the table VJP of pallas_hash_encode_coarse)
+// and hash_encode_forward_kernel's grid variant (Grid = true), the forward of
+// a chunk of a dense grid's voxels, which makes their coordinates from the
+// flat voxel index instead of reading them (the grid chunk op of
+// ops/hash_mlp_grid.py).
 //
 // Semantics (shared with the plain PyTorch version in ops/hash_encode.py and
 // with encodings/hashgrid.py): per level, scale x by the level resolution,
@@ -189,6 +193,22 @@ __device__ __forceinline__ void corners(const float* __restrict__ xp, const Leve
   corners_at<D>(xv, lv, rows, w);
 }
 
+// A dense grid's voxels as kernel 1's grid variant makes their coordinates
+// (ops/hash_mlp_grid.py:flat_index_to_coords, as torch computes it on the
+// card): voxel i's digit on axis k is i / stride[k] % size[k] (C order,
+// int32: the grid is refused at 2^31 voxels), its coordinate
+// lo + (hi - lo) * digit / max(size[k] - 1, 1), where torch multiplies by
+// the float32 reciprocal of a scalar divisor and rounds each step to
+// float32.
+struct GridSpec {
+  int size[kMaxDim];
+  int stride[kMaxDim];
+  float inv[kMaxDim];  // 1 / max(size - 1, 1), rounded to float32
+  float lo, span;      // lo and hi - lo (taken in double), rounded to float32
+  int64_t start;       // the voxel of the launch's point 0
+  int64_t total;       // voxels of the grid: later points repeat the last one
+};
+
 // Kernel 1: a block owns `points` consecutive points over every level. It
 // copies the per-level constants and the points' coordinates to shared
 // memory (coalesced), then its threads take (point, level) pairs with the
@@ -199,11 +219,15 @@ __device__ __forceinline__ void corners(const float* __restrict__ xp, const Leve
 // output (row stride width | 1: conflict-free scalar stores). The tile is
 // one contiguous run of out, written with 16-byte stores from the first
 // 16-byte boundary on and scalar stores at its two ends.
-template <int D, int V>
+// Grid = true is the grid variant: it reads no x, and stages the
+// coordinates of the grid's voxels start, ..., start + n - 1 (past the last
+// voxel, the last one again) that it makes from the flat voxel index; the
+// rest of the kernel is the same. Grid = false ignores `grid`.
+template <int D, int V, bool Grid>
 __global__ void __launch_bounds__(kThreads)
 hash_encode_forward_kernel(const float* __restrict__ x, const float* __restrict__ table,
                            float* __restrict__ out, int64_t n, int n_features, int n_levels, int points,
-                           const __grid_constant__ Levels levels) {
+                           const __grid_constant__ Levels levels, const __grid_constant__ GridSpec grid) {
   extern __shared__ float4 smem4[];
   Level* lv_s = reinterpret_cast<Level*>(smem4);
   float* xs = reinterpret_cast<float*>(lv_s + n_levels);
@@ -215,7 +239,19 @@ hash_encode_forward_kernel(const float* __restrict__ x, const float* __restrict_
     const int* src = reinterpret_cast<const int*>(levels.lv);
     int* dst = reinterpret_cast<int*>(lv_s);
     for (int e = threadIdx.x; e < n_levels * kLevelWords; e += kThreads) dst[e] = src[e];
-    for (int e = threadIdx.x; e < np * D; e += kThreads) xs[e] = __ldg(x + p0 * D + e);
+    if constexpr (Grid) {
+      for (int p = threadIdx.x; p < np; p += kThreads) {
+        const int64_t last = grid.total - 1, v = grid.start + p0 + p;
+        const int i = (int)(v < last ? v : last);
+#pragma unroll
+        for (int k = 0; k < D; ++k) {
+          const float digit = __int2float_rn(i / grid.stride[k] % grid.size[k]);
+          xs[p * D + k] = __fadd_rn(__fmul_rn(__fmul_rn(grid.span, digit), grid.inv[k]), grid.lo);
+        }
+      }
+    } else {
+      for (int e = threadIdx.x; e < np * D; e += kThreads) xs[e] = __ldg(x + p0 * D + e);
+    }
   }
   __syncthreads();
   for (int e = threadIdx.x; e < np * n_levels; e += kThreads) {
@@ -760,15 +796,33 @@ struct ForwardLaunch {
   static void run(unsigned blocks, int points, int smem, cudaStream_t stream, const float* x, const float* table,
                   float* out, int64_t n, int n_features, int n_levels, const Levels& lv) {
     const bool aligned4 = ((uintptr_t)table & 15) == 0, aligned2 = ((uintptr_t)table & 7) == 0;
+    const GridSpec none = {};
     if (n_features % 4 == 0 && aligned4)
-      hash_encode_forward_kernel<D, 4><<<blocks, kThreads, smem, stream>>>(x, table, out, n, n_features, n_levels,
-                                                                           points, lv);
+      hash_encode_forward_kernel<D, 4, false><<<blocks, kThreads, smem, stream>>>(x, table, out, n, n_features,
+                                                                                  n_levels, points, lv, none);
     else if (n_features % 2 == 0 && aligned2)
-      hash_encode_forward_kernel<D, 2><<<blocks, kThreads, smem, stream>>>(x, table, out, n, n_features, n_levels,
-                                                                           points, lv);
+      hash_encode_forward_kernel<D, 2, false><<<blocks, kThreads, smem, stream>>>(x, table, out, n, n_features,
+                                                                                  n_levels, points, lv, none);
     else
-      hash_encode_forward_kernel<D, 1><<<blocks, kThreads, smem, stream>>>(x, table, out, n, n_features, n_levels,
-                                                                           points, lv);
+      hash_encode_forward_kernel<D, 1, false><<<blocks, kThreads, smem, stream>>>(x, table, out, n, n_features,
+                                                                                  n_levels, points, lv, none);
+  }
+};
+
+template <int D>
+struct GridForwardLaunch {
+  static void run(unsigned blocks, int points, int smem, cudaStream_t stream, const float* table, float* out,
+                  int64_t n, int n_features, int n_levels, const Levels& lv, const GridSpec& grid) {
+    const bool aligned4 = ((uintptr_t)table & 15) == 0, aligned2 = ((uintptr_t)table & 7) == 0;
+    if (n_features % 4 == 0 && aligned4)
+      hash_encode_forward_kernel<D, 4, true><<<blocks, kThreads, smem, stream>>>(nullptr, table, out, n, n_features,
+                                                                                 n_levels, points, lv, grid);
+    else if (n_features % 2 == 0 && aligned2)
+      hash_encode_forward_kernel<D, 2, true><<<blocks, kThreads, smem, stream>>>(nullptr, table, out, n, n_features,
+                                                                                 n_levels, points, lv, grid);
+    else
+      hash_encode_forward_kernel<D, 1, true><<<blocks, kThreads, smem, stream>>>(nullptr, table, out, n, n_features,
+                                                                                 n_levels, points, lv, grid);
   }
 };
 
@@ -954,6 +1008,42 @@ cudaError_t unpack_plan(int d, int n_features, int n_levels, const Levels& level
   return cudaSuccess;
 }
 
+// The grid's spec from its d sizes (host pointer) and range: C-order
+// strides, each axis's float32 reciprocal 1 / max(size - 1, 1) and the
+// float32 lo and hi - lo, as torch rounds a Python scalar. Refuses an empty
+// axis, a grid of 2^31 voxels or more and a negative start.
+cudaError_t pack_grid(int d, const int32_t* shape, double lo, double hi, int64_t start, GridSpec* grid) {
+  if (shape == nullptr || start < 0) return cudaErrorInvalidValue;
+  memset(grid, 0, sizeof(GridSpec));
+  int64_t total = 1;
+  for (int k = d - 1; k >= 0; --k) {
+    if (shape[k] < 1) return cudaErrorInvalidValue;
+    grid->size[k] = shape[k];
+    grid->stride[k] = (int)total;
+    grid->inv[k] = 1.0f / (float)(shape[k] > 1 ? shape[k] - 1 : 1);
+    total *= shape[k];
+    if (total >= ((int64_t)1 << 31)) return cudaErrorInvalidValue;
+  }
+  grid->lo = (float)lo;
+  grid->span = (float)(hi - lo);
+  grid->start = start;
+  grid->total = total;
+  return cudaSuccess;
+}
+
+// The SMs of the current card, asked once.
+cudaError_t card_sms(int* sms) {
+  static int cached = 0;
+  if (cached == 0) {
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&cached, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return err;
+  }
+  *sms = cached;
+  return cudaSuccess;
+}
+
 // Kernel 1's points per block: 128, or 64 where 128 would give fewer than
 // two blocks an SM; fewer (a multiple of 4) where the output tile would
 // pass the 48 KB of shared memory a block has without the opt-in. Returns
@@ -981,18 +1071,40 @@ int hash_encode_forward(const float* x, const float* table, float* out, int64_t 
   cudaError_t err = pack_levels(d, n_features, n_levels, level_consts, &levels);
   if (err != cudaSuccess) return (int)err;
   if (n <= 0) return (int)cudaSuccess;
-  static int sms = 0;
-  if (sms == 0) {
-    int dev = 0;
-    err = cudaGetDevice(&dev);
-    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (err != cudaSuccess) return (int)err;
-  }
+  int sms = 0;
+  err = card_sms(&sms);
+  if (err != cudaSuccess) return (int)err;
   int points = 0;
   const int smem = forward_points(n, d, n_features, n_levels, sms, &points);
   const unsigned blocks = (unsigned)((n + points - 1) / points);
   return (int)dispatch_dim<ForwardLaunch>(d, blocks, points, smem, (cudaStream_t)stream, x, table, out, n,
                                           n_features, n_levels, levels);
+}
+
+// hash_encode_forward of the n voxels start, ..., start + n - 1 of a dense
+// grid of d sizes (shape: host pointer to d int32 words) over [lo, hi] on
+// every axis, in C order, the voxels past the last one repeating it: the
+// coordinates are made in the kernel (GridSpec), bit for bit those of
+// flat_index_to_coords on the card. Constants and out as for
+// hash_encode_forward. n == 0 launches nothing.
+int hash_encode_grid_forward(const float* table, float* out, int64_t start, int64_t n, int d, int n_features,
+                             int n_levels, const int32_t* level_consts, const int32_t* shape, double lo,
+                             double hi, void* stream) {
+  Levels levels;
+  cudaError_t err = pack_levels(d, n_features, n_levels, level_consts, &levels);
+  if (err != cudaSuccess) return (int)err;
+  GridSpec grid;
+  err = pack_grid(d, shape, lo, hi, start, &grid);
+  if (err != cudaSuccess) return (int)err;
+  if (n <= 0) return (int)cudaSuccess;
+  int sms = 0;
+  err = card_sms(&sms);
+  if (err != cudaSuccess) return (int)err;
+  int points = 0;
+  const int smem = forward_points(n, d, n_features, n_levels, sms, &points);
+  const unsigned blocks = (unsigned)((n + points - 1) / points);
+  return (int)dispatch_dim<GridForwardLaunch>(d, blocks, points, smem, (cudaStream_t)stream, table, out, n,
+                                              n_features, n_levels, levels, grid);
 }
 
 // dtable[row(n, l, c), f] += g[n, l*F + f] * w(n, l, c): the privatised

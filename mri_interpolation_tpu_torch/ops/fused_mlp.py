@@ -65,6 +65,7 @@ __all__ = [
     "ForwardPlan",
     "forward_plan",
     "forward_plan_words",
+    "ForwardLaunch",
     "scratch_shape",
     "FusedMLP",
     "fused_mlp_forward",
@@ -374,23 +375,36 @@ def scratch_shape(batch: int, dims: Sequence[int]) -> Tuple[int, int, int]:
     return rows, sum(padded), sum(padded[:-1])
 
 
+class ForwardLaunch:
+    """Kernel 5's launch for a stack checked by :func:`_chain` (widths
+    ``dims``) at a batch of ``n`` rows on ``device``: the library, the plan
+    and the ctypes arrays, built once; ``launch(x_ptr, out_ptr)`` runs the
+    stack from the (n, dims[0]) rows at ``x_ptr`` into the (n, dims[-1])
+    rows at ``out_ptr`` and counts in ``LAUNCHES["fused_mlp_forward"]``."""
+
+    def __init__(self, weights, biases, acts, dims: Sequence[int], n: int, device: torch.device):
+        self.lib = _library()
+        self.device = device
+        plan = forward_plan(dims, acts, n, build.sm_count(device.index))
+        # the split weights' scratch; none where no layer takes the tensor cores (a relu stack), which the
+        # kernel's host side accepts (csrc/fused_mlp.cu:pack_forward)
+        self.split = torch.empty((plan.split_words, 4), dtype=torch.int32, device=device) if plan.split_words else None
+        self.args = (n, len(weights), *_layer_arrays(dims, acts, weights, biases), forward_plan_words(plan),
+                     None if self.split is None else self.split.data_ptr(), plan.split_words)
+
+    def launch(self, x_ptr: int, out_ptr: int) -> None:
+        with span("mri.op.launch"), torch.cuda.device(self.device):
+            stream = torch.cuda.current_stream().cuda_stream
+            err = self.lib.fused_mlp_forward(x_ptr, out_ptr, *self.args, stream)
+        _raise_on(self.lib, "fused_mlp_forward", err)
+        if self.args[0] > 0:
+            LAUNCHES["fused_mlp_forward"] += 1
+
+
 def _forward_kernel(weights, biases, x, acts) -> torch.Tensor:
     dims = _chain(weights, biases, x, acts)
-    n = x.shape[0]
-    out = torch.empty((n, dims[-1]), dtype=torch.float32, device=x.device)
-    lib = _library()
-    plan = forward_plan(dims, acts, n, build.sm_count(x.device.index))
-    # the split weights' scratch; none where no layer takes the tensor cores (a relu stack), which the
-    # kernel's host side accepts (csrc/fused_mlp.cu:pack_forward)
-    split = torch.empty((plan.split_words, 4), dtype=torch.int32, device=x.device) if plan.split_words else None
-    with span("mri.op.launch"), torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.fused_mlp_forward(x.data_ptr(), out.data_ptr(), n, len(weights),
-                                    *_layer_arrays(dims, acts, weights, biases), forward_plan_words(plan),
-                                    None if split is None else split.data_ptr(), plan.split_words, stream)
-    _raise_on(lib, "fused_mlp_forward", err)
-    if n > 0:
-        LAUNCHES["fused_mlp_forward"] += 1
+    out = torch.empty((x.shape[0], dims[-1]), dtype=torch.float32, device=x.device)
+    ForwardLaunch(weights, biases, acts, dims, x.shape[0], x.device).launch(x.data_ptr(), out.data_ptr())
     return out
 
 

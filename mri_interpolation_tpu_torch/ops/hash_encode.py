@@ -39,6 +39,7 @@ __all__ = [
     "reset_launches",
     "hash_encode_forward",
     "hash_encode_table_grad",
+    "GridEncodeLaunch",
     "hash_encode_reference",
     "hash_encode_table_grad_reference",
     "hash_encode_table_grad_exact",
@@ -103,6 +104,9 @@ COARSE_WARP_COPIES_BYTES = 48 * 1024
 _SIGNATURE = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
               ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
 _PLAN_SIGNATURE = _SIGNATURE[:-1] + [ctypes.c_void_p, ctypes.c_void_p]  # ..., level_consts, plan, stream
+# table, out, start, n, d, F, L, level_consts, shape, lo, hi, stream
+_GRID_SIGNATURE = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_double, ctypes.c_double, ctypes.c_void_p]
 
 
 def reset_launches() -> None:
@@ -119,6 +123,8 @@ def _library() -> ctypes.CDLL:
             fn.restype = ctypes.c_int
         lib.hash_encode_table_grad.argtypes = _PLAN_SIGNATURE
         lib.hash_encode_coarse_table_grad.argtypes = _PLAN_SIGNATURE
+        lib.hash_encode_grid_forward.argtypes = _GRID_SIGNATURE
+        lib.hash_encode_grid_forward.restype = ctypes.c_int
         lib.hash_encode_error_string.argtypes = [ctypes.c_int]
         lib.hash_encode_error_string.restype = ctypes.c_char_p
     return lib
@@ -225,6 +231,12 @@ def _check_geometry(enc: HashGridEncoding) -> None:
         raise ValueError("the CUDA kernels index the table with int32: total_size * F must be < 2^31")
 
 
+def _raise_on(lib: ctypes.CDLL, fn_name: str, err: int) -> None:
+    if err != 0:
+        msg = lib.hash_encode_error_string(err).decode()
+        raise RuntimeError(f"{fn_name} launch failed: {msg} (cudaError {err})")
+
+
 def _launch(fn_name: str, a: torch.Tensor, b: torch.Tensor, out: torch.Tensor,
             enc: HashGridEncoding, consts: Optional[np.ndarray] = None,
             words: Optional[np.ndarray] = None) -> None:
@@ -239,11 +251,38 @@ def _launch(fn_name: str, a: torch.Tensor, b: torch.Tensor, out: torch.Tensor,
         err = getattr(lib, fn_name)(a.data_ptr(), b.data_ptr(), out.data_ptr(), a.shape[0],
                                     enc.input_dim, enc.n_features_per_level, consts.shape[0],
                                     consts.ctypes.data, *extra, stream)
-    if err != 0:
-        msg = lib.hash_encode_error_string(err).decode()
-        raise RuntimeError(f"{fn_name} launch failed: {msg} (cudaError {err})")
+    _raise_on(lib, fn_name, err)
     if a.shape[0] > 0:
         LAUNCHES[fn_name] += 1
+
+
+class GridEncodeLaunch:
+    """Kernel 1's grid variant (``hash_encode_forward_kernel<D, V, true>``) bound
+    to one table, one (rows, L*F) feature buffer ``out`` and one dense grid
+    of ``shape`` over [lo, hi]: ``launch(start)`` encodes the grid's voxels
+    start, ..., start + rows - 1 into ``out`` (past the last voxel, the last
+    one again), their coordinates made in the kernel, bit for bit those of
+    ``flat_index_to_coords`` on the card. Built once for a run of chunks
+    (the caller has checked the tensors); each launch counts in
+    ``LAUNCHES["hash_encode_forward"]``."""
+
+    def __init__(self, enc: HashGridEncoding, table: torch.Tensor, out: torch.Tensor, shape: Sequence[int],
+                 lo: float, hi: float):
+        _check_geometry(enc)
+        self.lib = _library()
+        self.device = out.device
+        self.consts = enc.kernel_constants  # the launch reads it through the pointer below
+        self.head = (table.data_ptr(), out.data_ptr())
+        self.tail = (out.shape[0], enc.input_dim, enc.n_features_per_level, self.consts.shape[0],
+                     self.consts.ctypes.data, (ctypes.c_int32 * len(shape))(*shape), float(lo), float(hi))
+
+    def launch(self, start: int) -> None:
+        with span("mri.op.launch"), torch.cuda.device(self.device):
+            stream = torch.cuda.current_stream().cuda_stream
+            err = self.lib.hash_encode_grid_forward(*self.head, start, *self.tail, stream)
+        _raise_on(self.lib, "hash_encode_grid_forward", err)
+        if self.tail[0] > 0:
+            LAUNCHES["hash_encode_forward"] += 1
 
 
 def hash_encode_forward(enc: HashGridEncoding, table: torch.Tensor, x: torch.Tensor) -> torch.Tensor:

@@ -1,5 +1,14 @@
 """Kernels 1-6 as PyTorch dispatcher ops, in the namespace ``mri_torch``.
 
+One op per kernel or kernel pair (``hash_encode_forward``,
+``hash_encode_table_grad``, ``hash_encode_coarse_forward``,
+``hash_encode_coarse_table_grad``, ``fused_mlp_forward``,
+``fused_mlp_backward``), and ``hash_mlp_grid_forward``: one chunk of a
+dense grid through a hash encoder and a fused decoder, kernel 1's grid
+variant then kernel 5, written in place into a feature buffer and the
+volume's rows (``ops/hash_mlp_grid.py``; ``infer/grid.py``'s
+``fused_grid`` route).
+
 Each op has three impls:
 
 - ``CUDA``: the ctypes launch of ``hash_encode.py`` / ``fused_mlp.py``
@@ -17,7 +26,8 @@ from the card to the plain version. Autograd stays with the
 ``torch.autograd.Function`` s of the two modules (``HashEncode``,
 ``HashEncodeCoarse``, ``FusedMLP``), whose ``forward`` and ``backward`` call
 these ops through the public wrappers: an autograd formula registered on
-the op would cost more host time a call.
+the op would cost more host time a call. ``hash_mlp_grid_forward`` serves
+inference alone and has none.
 
 Arguments are schema types: a hash geometry is
 ``HashGridEncoding.geometry_key()`` (rebuilt by ``HashGridEncoding.from_key``,
@@ -34,6 +44,7 @@ import torch
 from ..encodings.hashgrid import HashGridEncoding
 from . import fused_mlp as fm
 from . import hash_encode as he
+from . import hash_mlp_grid as hg
 
 __all__ = ["NAMESPACE", "SCHEMAS"]
 
@@ -49,6 +60,9 @@ SCHEMAS = {
     "fused_mlp_forward": "fused_mlp_forward(Tensor x, Tensor[] params, float[] acts) -> Tensor",
     "fused_mlp_backward":
         "fused_mlp_backward(Tensor x, Tensor g, Tensor[] params, float[] acts, bool need_dx) -> Tensor[]",
+    "hash_mlp_grid_forward":
+        "hash_mlp_grid_forward(Tensor table, Tensor[] params, float[] acts, int[] geometry, int[] shape, float lo, "
+        "float hi, int start, Tensor(a!) scratch, Tensor(b!) out) -> ()",
 }
 
 
@@ -75,6 +89,7 @@ _IMPLS = {
         fm._forward_cpu, fm._forward_cuda,
         lambda x, params, acts: x.new_empty((x.shape[0], params[-2].shape[1]))),
     "fused_mlp_backward": (fm._backward_cpu, fm._backward_cuda, _fake_fused_mlp_backward),
+    "hash_mlp_grid_forward": (hg._forward_cpu, hg._forward_cuda, lambda *args: None),  # writes in place
 }
 
 _LIB = torch.library.Library(NAMESPACE, "DEF")  # kept alive: the registrations live as long as it

@@ -26,7 +26,12 @@ launches, syncs).
 - ``mri.train.hooks``: the epoch hooks;
 - ``mri.grid.request``: one ``evaluate_grid`` call;
 - ``mri.grid.encode``: the separable route's ``apply_grid`` of the whole grid;
-- ``mri.grid.chunk``: a chunk's coordinates, forward and store;
+- ``mri.grid.chunk``: one chunk of a request, by route
+  (``infer.grid.ROUTES``): ``fused_grid``, the one call of the op
+  ``hash_mlp_grid_forward`` (kernel 1 makes the coordinates, kernel 5
+  stores the rows); ``chunked``, the coordinates, the model's forward and
+  the store into the volume; ``separable``, the decoder on the chunk's rows
+  of the grid's features and the store;
 - ``mri.grid.to_host``: the volume's (and latents') copy to host memory,
   the 16-bit quantisation included: the wait for queued work and the copy;
 - ``mri.op.launch``: a kernel's ctypes launch, inside the dispatcher's

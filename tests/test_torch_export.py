@@ -249,7 +249,7 @@ def test_geometry_key_rebuilds_the_geometry(name):
 
 
 OPS = ("hash_encode_forward", "hash_encode_table_grad", "hash_encode_coarse_forward",
-       "hash_encode_coarse_table_grad", "fused_mlp_forward", "fused_mlp_backward")
+       "hash_encode_coarse_table_grad", "fused_mlp_forward", "fused_mlp_backward", "hash_mlp_grid_forward")
 
 
 def _op_args(name):
@@ -268,6 +268,8 @@ def _op_args(name):
     mg = torch.from_numpy(rng.standard_normal((40, 2)).astype(np.float32))
     params = [t for pair in zip(ws, bs) for t in pair]
     words = list(fm.act_words(acts))
+    grid_params = [torch.from_numpy(rng.uniform(-0.5, 0.5, shape).astype(np.float32))
+                   for shape in ((6, 16), (16,), (16, 1), (1,))]
     args = {
         "hash_encode_forward": (table, x, key),
         "hash_encode_table_grad": (x, g, key),
@@ -275,6 +277,9 @@ def _op_args(name):
         "hash_encode_coarse_table_grad": (x, g[:, :len(levels) * 2].contiguous(), key, levels),
         "fused_mlp_forward": (mx, params, words),
         "fused_mlp_backward": (mx, mg, params, words, True),
+        # rows 32-47 of a (5, 9) grid over [-1, 1], the last three past its last voxel, through relu 6-16-1
+        "hash_mlp_grid_forward": (table, grid_params, list(fm.act_words(fm.mlp_acts(1, "relu"))), key, [5, 9], -1.0,
+                                  1.0, 32, torch.zeros((16, 6)), torch.zeros((48, 1))),
     }[name]
     return getattr(torch.ops.mri_torch, name).default, args
 

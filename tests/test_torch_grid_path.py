@@ -278,3 +278,128 @@ def test_device_eval_seconds_runs_the_same_path(apply_grid_calls):
     assert seconds > 0 and apply_grid_calls == [1] * 4
     assert device_eval_seconds(tm, (9, 10, 11), iters=2, device="cpu", transform=lambda x: x) > 0
     assert apply_grid_calls == [1] * 4
+
+
+# ---------------------------------------------------------------------------
+# the fused_grid route: one op call a chunk (hash_mlp_grid_forward), on the CPU its plain version
+
+# relu_plain HashMLPs whose encoder the separable route does not take: (dim_in, factory keywords)
+FUSED = {
+    "3d_hashed_level": (3, {**PROTOCOL, "log2_hashmap_size": 8}),
+    "3d_all_hashed": (3, {**PROTOCOL, "storage": "hashed", "log2_hashmap_size": 9}),
+    "4d": (4, dict(n_levels=3, n_features_per_level=4, log2_hashmap_size=10, base_resolution=(4, 4, 2, 2),
+                   finest_resolution=(16, 16, 4, 6), growth="paper", dim_hidden=16, decoder="relu_plain")),
+}
+# grid shape, lo, hi, chunk size: each with a padded tail
+FUSED_GRIDS = {
+    "3d_hashed_level": [((9, 10, 11), 0.0, 1.0, 128), ((7, 1, 5), -1.0, 1.0, 16)],
+    "3d_all_hashed": [((6, 5, 4), -1.0, 1.0, 50)],
+    "4d": [((5, 4, 3, 6), -1.0, 1.0, 100), ((3, 5, 1, 7), 0.0, 1.0, 1 << 17), ((2, 3, 4, 5), 0.25, 0.5, 7)],
+}
+
+
+def _fused_model(name, seed=0):
+    dim, kw = FUSED[name]
+    model = make_hash_mlp(dim, seed=seed, device="cpu", **kw)
+    with torch.no_grad():
+        model.encoder.table.uniform_(-1.0, 1.0, generator=torch.Generator().manual_seed(seed))
+    return model
+
+
+@pytest.mark.parametrize("name, grid", [(n, g) for n in sorted(FUSED) for g in FUSED_GRIDS[n]])
+def test_fused_grid_op_equals_the_chunked_route(name, grid):
+    """The op's CPU impl gives the chunked route's volume bit for bit (an
+    identity ``transform`` sends the same grid down the chunked route): 3-D
+    and 4-D grids, a padded tail, [-1, 1], an axis of one voxel, hashed
+    levels, one chunk for the whole grid."""
+    from mri_interpolation_tpu_torch.infer import ROUTES, reset_routes
+
+    shape, lo, hi, chunk = grid
+    model = _fused_model(name)
+    reset_routes()
+    fused = evaluate_grid(model, shape, lo=lo, hi=hi, chunk_size=chunk, device="cpu")
+    chunked = evaluate_grid(model, shape, lo=lo, hi=hi, chunk_size=chunk, device="cpu", transform=lambda x: x)
+    assert ROUTES == {"separable": 0, "fused_grid": 1, "chunked": 1}
+    assert fused.shape == shape and np.isfinite(fused).all() and np.abs(fused).max() > 0
+    assert np.array_equal(fused, chunked)
+
+
+def test_fused_grid_op_writes_one_chunk_in_place():
+    """One call writes rows start, ..., start + len(scratch) - 1 of ``out``
+    (the voxels past the last repeat it) and the encoder's features into
+    ``scratch``, and touches no other row."""
+    from mri_interpolation_tpu_torch.ops.hash_mlp_grid import grid_forward
+    from mri_interpolation_tpu_torch.ops import fused_mlp as fm
+
+    model = _fused_model("4d")
+    shape, n = (3, 5, 2, 7), 210
+    enc = model.encoder.geometry
+    params = [t.detach() for layer in model.layers for t in (layer.w, layer.b)]
+    scratch, out = torch.zeros((64, enc.output_dim)), torch.full((256, 1), 7.0)
+    with torch.no_grad():
+        grid_forward(model.encoder.table.detach(), params, list(fm.act_words(fm.mlp_acts(1, "relu"))),
+                     list(enc.geometry_key()), list(shape), -1.0, 1.0, 192, scratch, out)
+        x = flat_index_to_coords(torch.arange(192, 256).clamp_(max=n - 1), shape, -1.0, 1.0)
+        assert torch.equal(scratch, model.encode(x))
+        assert torch.equal(out[192:], model(x))
+    assert torch.equal(out[:192], torch.full((192, 1), 7.0))
+    assert torch.equal(out[n - 1:].unique(), out[n - 1])
+
+
+def _route_case(case):
+    """(model, evaluate_grid keywords, grid shape) of a route-counter case."""
+    if case == "frame_idx":
+        model = make_multi_hash_mlp(dim_in=2, n_frames=2, n_levels=2, log2_hashmap_size=6, dim_hidden=8,
+                                    device="cpu")
+        return model, {"frame_idx": 1}, (6, 5)
+    kw = {**PROTOCOL, "log2_hashmap_size": 8}
+    extra = {"norm": {"decoder": "norm"}, "norm_proper": {"decoder": "norm_proper"},
+             "anneal": {"level_anneal_steps": 8}, "all_dense": {"log2_hashmap_size": 23}}.get(case, {})
+    model = make_hash_mlp(3, device="cpu", **{**kw, **extra})
+    options = {"transform": {"transform": lambda x: x}, "return_latents": {"return_latents": True}}.get(case, {})
+    return model, options, (6, 5, 4)
+
+
+@pytest.mark.parametrize("case, route", [
+    ("fused", "fused_grid"), ("norm", "chunked"), ("norm_proper", "chunked"), ("anneal", "chunked"),
+    ("transform", "chunked"), ("frame_idx", "chunked"), ("return_latents", "chunked"), ("all_dense", "separable")])
+def test_routes_count_the_route_a_request_takes(case, route):
+    """``ROUTES`` counts each request once, under its route: a relu_plain
+    HashMLP with a hashed level takes ``fused_grid``; a norm decoder, a level
+    anneal, a ``transform``, a frame index (the multi-frame model has no
+    split), ``return_latents`` do not; an all-dense encoder on [0, 1] takes
+    the separable route."""
+    from mri_interpolation_tpu_torch.infer import ROUTES, reset_routes
+
+    model, options, shape = _route_case(case)
+    reset_routes()
+    out = evaluate_grid(model, shape, chunk_size=32, device="cpu", **options)
+    vol = out[0] if case == "return_latents" else out
+    assert vol.shape == shape and np.isfinite(vol).all()
+    assert ROUTES == {**{name: 0 for name in ROUTES}, route: 1}
+
+
+def test_device_eval_seconds_takes_the_fused_grid_route():
+    from mri_interpolation_tpu_torch.infer import ROUTES, reset_routes
+
+    model = _fused_model("3d_hashed_level")
+    reset_routes()
+    assert device_eval_seconds(model, (9, 10, 11), chunk_size=256, iters=2, device="cpu") > 0
+    assert ROUTES == {"separable": 0, "fused_grid": 3, "chunked": 0}
+
+
+@pytest.mark.parametrize("lo, hi, chunk_size", [(0.0, 1.0, 128), (-1.0, 1.0, 1 << 17), (0.25, 0.5, 77)])
+def test_fused_grid_matches_jax(lo, hi, chunk_size):
+    """A relu_plain HashMLP with a hashed level, on the fused_grid route,
+    against the JAX package's ``evaluate_grid``: atol 1e-5, as the separable
+    route's parity."""
+    from mri_interpolation_tpu_torch.infer import ROUTES, reset_routes
+
+    jm, params, state, tm = _pair({**PROTOCOL, "log2_hashmap_size": 8}, seed=4)
+    assert not tm.encoder.geometry.supports_grid_path()
+    shape = (9, 10, 11)
+    want = np.asarray(jax_evaluate_grid(jm, params, state, shape, lo=lo, hi=hi, chunk_size=chunk_size))
+    reset_routes()
+    got = evaluate_grid(tm, shape, lo=lo, hi=hi, chunk_size=chunk_size, device="cpu")
+    assert ROUTES["fused_grid"] == 1
+    np.testing.assert_allclose(got, want, rtol=0, atol=ATOL)

@@ -225,6 +225,33 @@ def test_forward_kernel_paths_raise_instead_of_falling_back(monkeypatch):
     assert set(he.LAUNCHES.values()) == {0} and set(fm.LAUNCHES.values()) == {0}
 
 
+def test_grid_chunk_op_kernel_path_raises_instead_of_falling_back(monkeypatch):
+    """The grid chunk op's kernel side (kernel 1's grid variant, then kernel
+    5) checks its arguments and builds its libraries or raises: with nothing
+    built and no nvcc it never takes the plain version."""
+    from mri_interpolation_tpu_torch.ops import hash_mlp_grid as hg
+
+    monkeypatch.setattr(build, "_loaded", {})
+    monkeypatch.setattr(build, "find_nvcc", lambda: None)
+    monkeypatch.setattr(hg, "_last", {})
+    enc = HashGridEncoding(dim=3, n_levels=2, n_features_per_level=2, log2_hashmap_size=8, base_resolution=4,
+                           finest_resolution=None, per_level_scale=2.0)
+    params = [torch.zeros((4, 8)), torch.zeros(8), torch.zeros((8, 1)), torch.zeros(1)]
+    acts, key = list(fm.act_words(fm.mlp_acts(1, "relu"))), list(enc.geometry_key())
+    he.reset_launches()
+    fm.reset_launches()
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        hg._forward_cuda(enc.init(), params, acts, key, [3, 4, 5], 0.0, 1.0, 0, torch.empty((16, 4)),
+                         torch.empty((64, 1)))
+    with pytest.raises(ValueError, match="expected 3 axes"):
+        hg._forward_cuda(enc.init(), params, acts, key, [3, 4], 0.0, 1.0, 0, torch.empty((16, 4)),
+                         torch.empty((64, 1)))
+    with pytest.raises(ValueError, match="scratch has shape"):
+        hg._forward_cuda(enc.init(), params, acts, key, [3, 4, 5], 0.0, 1.0, 0, torch.empty((16, 5)),
+                         torch.empty((64, 1)))
+    assert set(he.LAUNCHES.values()) == {0} and set(fm.LAUNCHES.values()) == {0}
+
+
 MULTI = dict(dim_in=2, n_frames=2)
 
 

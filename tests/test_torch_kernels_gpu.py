@@ -781,18 +781,23 @@ def test_encode_forward_unaligned_table(f, cuda_device):
 # the dispatcher ops (ops/library.py) and a served artifact, on the card
 
 OPS = ("hash_encode_forward", "hash_encode_table_grad", "hash_encode_coarse_forward",
-       "hash_encode_coarse_table_grad", "fused_mlp_forward", "fused_mlp_backward")
+       "hash_encode_coarse_table_grad", "fused_mlp_forward", "fused_mlp_backward", "hash_mlp_grid_forward")
 
 
 def _op_args(name, device):
     """The op ``name`` and its arguments at small sizes on ``device``: the d2
-    geometry (every level coarse) at 300 points, the siren_w0s stack."""
+    geometry (every level coarse) at 300 points, the siren_w0s stack; for
+    the grid chunk, a relu 6-16-1 decoder on the d2 encoder and rows 96-159
+    of a (7, 13) grid over [-1, 1]."""
     enc, x, table, g = _inputs(CONFIGS["d2"], 300, device)
     key = list(enc.geometry_key())
     levels = he.coarse_onehot_levels(enc)
     ws, bs, mx, mg, acts = _stack("siren_w0s", device)
     params = [t for pair in zip(ws, bs) for t in pair]
     words = list(fm.act_words(acts))
+    gws, gbs, _, _, gacts = _make_stack([enc.output_dim, 16, 1], fm.mlp_acts(1, "relu"), 1, device)
+    grid_params = [t for pair in zip(gws, gbs) for t in pair]
+    scratch = torch.empty((64, enc.output_dim), device=device)
     args = {
         "hash_encode_forward": (table, x, key),
         "hash_encode_table_grad": (x, g, key),
@@ -800,6 +805,8 @@ def _op_args(name, device):
         "hash_encode_coarse_table_grad": (x, g[:, :len(levels) * enc.n_features_per_level].contiguous(), key, levels),
         "fused_mlp_forward": (mx, params, words),
         "fused_mlp_backward": (mx, mg, params, words, True),
+        "hash_mlp_grid_forward": (table, grid_params, list(fm.act_words(gacts)), key, [7, 13], -1.0, 1.0, 64, scratch,
+                                  torch.zeros((192, 1), device=device)),
     }[name]
     return getattr(torch.ops.mri_torch, name).default, args
 
@@ -807,8 +814,8 @@ def _op_args(name, device):
 @pytest.mark.gpu
 @pytest.mark.parametrize("name", OPS)
 def test_op_schema_and_fake_impl_on_card(name, cuda_device):
-    """Each op's CUDA impl against its schema (no input mutated or aliased)
-    and its fake impl (the same output shapes, dtypes and devices)."""
+    """Each op's CUDA impl against its schema (no input mutated or aliased
+    that the schema does not mark) and its fake impl (the same output shapes, dtypes and devices)."""
     op, args = _op_args(name, cuda_device)
     torch.library.opcheck(op, args, test_utils=("test_schema", "test_faketensor"))
 
