@@ -29,7 +29,9 @@ The variants, in plain tensor code (the JAX package fuses only
   expands to its ``n_sample^d`` PSF offsets (:func:`psf_offsets_and_weights`),
   whose predictions a normalised Gaussian integrates back to one voxel; the
   MSE whatever loss the trainer is configured with. Tree ``{"layers",
-  "last"}``.
+  "last"}``. The expansion and the integration each open a span
+  (``mri.model.psf_expand``, ``mri.model.psf_integrate``), and
+  :data:`PSF_ROWS` counts the rows the objective fed the SIREN.
 """
 
 from __future__ import annotations
@@ -42,11 +44,19 @@ from torch import nn
 
 from ..device import DeviceLike, resolve_device
 from ..ops.fused_mlp import fused_siren_apply
+from ..tracing import span
 from .core import Dense, Model, uniform_init
 
 __all__ = ["Siren", "make_siren", "siren_layer_init", "siren_layer_apply", "siren_init", "ModulatedSiren",
            "make_modulated_siren", "HashSiren", "make_hash_siren", "PsfSiren", "make_psf_siren",
-           "psf_offsets_and_weights"]
+           "psf_offsets_and_weights", "PSF_ROWS", "reset_psf_rows"]
+
+PSF_ROWS = {"psf_siren": 0}  # rows (B * K a call) that PsfSiren.psf_loss fed the SIREN
+
+
+def reset_psf_rows() -> None:
+    for name in PSF_ROWS:
+        PSF_ROWS[name] = 0
 
 
 def siren_layer_init(dim_in: int, dim_out: int, w0: float, sigma: float, is_first: bool,
@@ -232,10 +242,13 @@ class PsfSiren(Siren):
         """MSE of the PSF-integrated prediction: every voxel centre expands
         to its K offsets, one (B*K, d) forward, then the Gaussian weighted
         sum over K."""
-        xp = (x[:, None, :] + self.offsets).reshape(-1, x.shape[-1])
+        with span("mri.model.psf_expand"):
+            xp = (x[:, None, :] + self.offsets).reshape(-1, x.shape[-1])
+        PSF_ROWS["psf_siren"] += xp.shape[0]
         z = self(xp).reshape(x.shape[0], self.offsets.shape[0], -1)
-        z = torch.einsum("bkf,k->bf", z, self.psf_weights)
-        return torch.mean((z - y) ** 2)
+        with span("mri.model.psf_integrate"):
+            z = torch.einsum("bkf,k->bf", z, self.psf_weights)
+            return torch.mean((z - y) ** 2)
 
 
 def make_modulated_siren(

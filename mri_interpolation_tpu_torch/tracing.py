@@ -24,6 +24,10 @@ launches, syncs).
 - ``mri.train.optimizer``: the whole update chain (schedule and Adam);
 - ``mri.train.sync``: the epoch's one copy of its losses to the host;
 - ``mri.train.hooks``: the epoch hooks;
+- ``mri.model.psf_expand``: the PSF SIREN's expansion of a batch's voxel
+  centres into their B*K offset points (``PsfSiren.psf_loss``);
+- ``mri.model.psf_integrate``: its Gaussian weighted sum of the K
+  predictions of each voxel and the MSE against the targets;
 - ``mri.grid.request``: one ``evaluate_grid`` call;
 - ``mri.grid.encode``: the separable route's ``apply_grid`` of the whole grid;
 - ``mri.grid.chunk``: one chunk of a request, by route
@@ -55,6 +59,8 @@ SPANS = (
     "mri.train.optimizer",
     "mri.train.sync",
     "mri.train.hooks",
+    "mri.model.psf_expand",
+    "mri.model.psf_integrate",
     "mri.grid.request",
     "mri.grid.encode",
     "mri.grid.chunk",
