@@ -23,6 +23,22 @@ counted in :data:`ROUTES`:
   (:func:`flat_index_to_coords`) go through the model's forward, the hash
   encoder's kernel on the card, and the output is stored into the volume.
 
+The volume reaches host memory by one of two transfers, counted in
+:data:`TRANSFERS`:
+
+- ``pinned``: a request on a CUDA device with ``transport="f32"`` and no
+  ``return_latents``. The (n, dim_out) float32 volume goes to a host tensor
+  from torch's caching host allocator (``pin_memory=True``), slab by slab:
+  after the chunks that fill a slab (whole chunks of about ``_SLAB_BYTES``)
+  the device's copy stream waits on the current stream and copies the
+  slab's rows (never the padded tail) while later chunks compute. The
+  request ends by waiting for the last slab's copy. The returned array is a
+  view of that tensor and holds it: every request gets its own, and a
+  dropped one returns to the allocator's cache for a later request;
+- ``pageable``: every other request (the CPU, ``u16``, which needs the whole
+  volume's range first, and ``return_latents``): one copy of the whole
+  volume after the last chunk.
+
 ``predict_batched`` runs the same chunked forward over an explicit
 coordinate matrix (the launcher's periodic eval).
 """
@@ -30,7 +46,7 @@ coordinate matrix (the launcher's periodic eval).
 from __future__ import annotations
 
 import time
-from typing import Callable, Optional, Sequence, Tuple
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -43,7 +59,7 @@ from ..ops.hash_mlp_grid import flat_index_to_coords, grid_forward
 from ..tracing import span
 
 __all__ = ["flat_index_to_coords", "evaluate_grid", "device_eval_seconds", "has_split", "predict_batched",
-           "ROUTES", "reset_routes"]
+           "ROUTES", "reset_routes", "TRANSFERS", "reset_transfers"]
 
 # requests (calls of evaluate_grid and runs of device_eval_seconds) by the route they took, counted when the route is
 # chosen, in the style of the ops' LAUNCHES
@@ -53,6 +69,60 @@ ROUTES = {"separable": 0, "fused_grid": 0, "chunked": 0}
 def reset_routes() -> None:
     for name in ROUTES:
         ROUTES[name] = 0
+
+
+# calls of evaluate_grid by how the volume reached host memory, counted when the transfer is chosen
+TRANSFERS = {"pinned": 0, "pageable": 0}
+
+
+def reset_transfers() -> None:
+    for name in TRANSFERS:
+        TRANSFERS[name] = 0
+
+
+# a slab of the pinned transfer is the whole chunks of about this many bytes: each slab costs the host an event, a
+# wait and a copy launch. On an H100 a (352, 352, 6, 30) grid in 2^17-voxel chunks (512 KiB each) took a median 30.3
+# ms a request at 1 chunk a slab, 27.2 at 2, and 22.6-22.9 ms at 4 to 32
+_SLAB_BYTES = 4 << 20
+_COPY_STREAMS: Dict[int, "torch.cuda.Stream"] = {}
+
+
+def _copy_stream(dev: torch.device) -> "torch.cuda.Stream":
+    """The device's stream for the volume's copies to the host, made on first use."""
+    stream = _COPY_STREAMS.get(dev.index)
+    if stream is None:
+        stream = _COPY_STREAMS[dev.index] = torch.cuda.Stream(dev)
+    return stream
+
+
+class _PinnedVolume:
+    """The pinned transfer's destination ``rows`` (n, dim_out), filled from
+    the device's (padded) volume slab by slab on ``stream``."""
+
+    def __init__(self, rows: torch.Tensor, chunk_size: int, stream: "torch.cuda.Stream"):
+        self.rows, self.stream = rows, stream
+        chunk = min(chunk_size, len(rows))
+        self.slab = chunk * max(1, _SLAB_BYTES // (chunk * rows.shape[1] * rows.element_size()))  # rows a slab
+        self.copied = 0
+        self.done = None  # the event after the last slab's copy
+
+    def stored(self, out: torch.Tensor, stop: int) -> None:
+        """Rows [0, stop) of ``out`` are queued on the current stream: copy
+        the slab they complete, if they complete one, on the copy stream."""
+        stop = min(stop, len(self.rows))
+        if stop - self.copied < self.slab and stop < len(self.rows):
+            return
+        self.stream.wait_stream(torch.cuda.current_stream(out.device))
+        with torch.cuda.stream(self.stream):
+            self.rows[self.copied:stop].copy_(out[self.copied:stop], non_blocking=True)
+        self.done = self.stream.record_event()
+        self.copied = stop
+
+    def volume(self) -> np.ndarray:
+        """Waits for the last slab's copy; the (n, dim_out) array, a view
+        that holds ``rows``."""
+        self.done.synchronize()
+        return self.rows.numpy()
 
 
 def _check_model_on(model: Model, dev: torch.device) -> None:
@@ -67,11 +137,13 @@ def _padded_chunk(rows: torch.Tensor, size: int) -> torch.Tensor:
 
 
 def _eval_chunks(model: Model, n: int, chunk_size: int, dev: torch.device,
-                 chunk_eval: Callable[[int, int], Tuple[torch.Tensor, Optional[torch.Tensor]]]):
+                 chunk_eval: Callable[[int, int], Tuple[torch.Tensor, Optional[torch.Tensor]]],
+                 host: Optional[_PinnedVolume] = None):
     """The model in eval mode on ``n`` rows, ``chunk_size`` a chunk:
     ``chunk_eval(start, stop)`` gives a chunk's output and its latents or
     None (rows past n repeat the last). Returns the (n, dim_out) output and
-    the (n, features) latents or None, on the device."""
+    the (n, features) latents or None, on the device; ``host``, if given,
+    receives the output's slabs as they are stored."""
     chunk_size = min(chunk_size, n)
     n_chunks = -(-n // chunk_size)
     out = torch.empty((n_chunks * chunk_size, model.dim_out), dtype=torch.float32, device=dev)
@@ -88,6 +160,8 @@ def _eval_chunks(model: Model, n: int, chunk_size: int, dev: torch.device,
                     if latents is None:
                         latents = torch.empty((len(out), z.shape[-1]), dtype=torch.float32, device=dev)
                     latents[start:stop] = z
+            if host is not None:
+                host.stored(out, stop)
     finally:
         model.train(was_training)
     return out[:n], (None if latents is None else latents[:n])
@@ -107,9 +181,11 @@ def _decode_weighted(model: Model, z: torch.Tensor) -> torch.Tensor:
 
 
 def _grid_on_device(model: Model, shape, lo: float, hi: float, chunk_size: int, dev: torch.device,
-                    frame_idx: Optional[int], transform: Optional[Callable], return_latents: bool):
+                    frame_idx: Optional[int], transform: Optional[Callable], return_latents: bool,
+                    host: Optional[_PinnedVolume] = None):
     """The device side of :func:`evaluate_grid`: (n, dim_out) and the raw
-    latents (n, features) or None, on ``dev``."""
+    latents (n, features) or None, on ``dev``; ``host``, if given, receives
+    the volume's slabs as the chunk loop stores them."""
     n = int(np.prod(shape))
     split = has_split(model) and frame_idx is None
     if return_latents and not split:
@@ -123,12 +199,12 @@ def _grid_on_device(model: Model, shape, lo: float, hi: float, chunk_size: int, 
             z = geometry.apply_grid(model.encoder.table.float(), shape, lo, hi)  # (n, L*F), once for the grid
         y, _ = _eval_chunks(model, n, chunk_size, dev,
                             lambda start, stop: (_decode_weighted(model, _padded_chunk(z[start:stop], stop - start)),
-                                                 None))
+                                                 None), host)
         return y, (z if return_latents else None)
     if (split and transform is None and not return_latents and isinstance(model, HashMLP) and model.fused
             and isinstance(model.encoder, HashGridEncoder) and model.anneal_weights() is None):
         ROUTES["fused_grid"] += 1
-        return _fused_grid(model, shape, lo, hi, chunk_size, dev), None
+        return _fused_grid(model, shape, lo, hi, chunk_size, dev, host), None
     ROUTES["chunked"] += 1
 
     def chunk_coords(start: int, stop: int) -> torch.Tensor:
@@ -143,12 +219,14 @@ def _grid_on_device(model: Model, shape, lo: float, hi: float, chunk_size: int, 
         z = model.encode(x)
         return _decode_weighted(model, z), (z if return_latents else None)
 
-    return _eval_chunks(model, n, chunk_size, dev, chunk_eval)
+    return _eval_chunks(model, n, chunk_size, dev, chunk_eval, host)
 
 
-def _fused_grid(model: HashMLP, shape, lo: float, hi: float, chunk_size: int, dev: torch.device) -> torch.Tensor:
+def _fused_grid(model: HashMLP, shape, lo: float, hi: float, chunk_size: int, dev: torch.device,
+                host: Optional[_PinnedVolume] = None) -> torch.Tensor:
     """The ``fused_grid`` route: (n, dim_out) on ``dev``, one op call a
-    chunk, its arguments and feature buffer made once for the request."""
+    chunk, its arguments and feature buffer made once for the request;
+    ``host``, if given, receives the volume's slabs as they are stored."""
     n = int(np.prod(shape))
     chunk_size = min(chunk_size, n)
     n_chunks = -(-n // chunk_size)
@@ -162,6 +240,8 @@ def _fused_grid(model: HashMLP, shape, lo: float, hi: float, chunk_size: int, de
     for c in range(n_chunks):
         with span("mri.grid.chunk"):
             grid_forward(table, params, acts, geometry, grid, lo, hi, c * chunk_size, scratch, out)
+        if host is not None:
+            host.stored(out, (c + 1) * chunk_size)
     return out[:n]
 
 
@@ -191,6 +271,10 @@ def evaluate_grid(model: Model, shape: Sequence[int], lo: float = 0.0, hi: float
       ``frame_idx``;
     - ``transport="u16"``: the volume crosses to the host as 16-bit codes
       against its range, dequantised there (one step is (max - min) / 65535).
+
+    On a CUDA device with ``transport="f32"`` and no ``return_latents`` the
+    volume goes to pinned host memory slab by slab while the grid computes
+    (the module's ``pinned`` transfer); the array is complete on return.
     """
     if transport not in ("f32", "u16"):
         raise ValueError(f"unknown transport {transport!r}")
@@ -198,13 +282,22 @@ def evaluate_grid(model: Model, shape: Sequence[int], lo: float = 0.0, hi: float
         dev = resolve_device(device)
         _check_model_on(model, dev)
         shape = tuple(int(s) for s in shape)
-        y, z = _grid_on_device(model, shape, lo, hi, chunk_size, dev, frame_idx, transform, return_latents)
+        host = None
+        if dev.type == "cuda" and transport == "f32" and not return_latents:
+            TRANSFERS["pinned"] += 1
+            host = _PinnedVolume(torch.empty((int(np.prod(shape)), model.dim_out), dtype=torch.float32,
+                                             pin_memory=True), chunk_size, _copy_stream(dev))
+        else:
+            TRANSFERS["pageable"] += 1
+        y, z = _grid_on_device(model, shape, lo, hi, chunk_size, dev, frame_idx, transform, return_latents, host)
 
         def to_volume(arr: np.ndarray) -> np.ndarray:
             return arr.reshape(shape) if arr.shape[-1] == 1 else arr.reshape(shape + (arr.shape[-1],))
 
         with span("mri.grid.to_host"):
-            if transport == "u16":
+            if host is not None:
+                vol = host.volume()
+            elif transport == "u16":
                 q, vlo, vhi = _quantise_u16(y)
                 vlo, vhi = float(vlo), float(vhi)
                 codes = q.cpu().numpy().astype(np.int32) + 32768

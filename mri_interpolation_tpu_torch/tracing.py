@@ -36,7 +36,10 @@ launches, syncs).
   stores the rows); ``chunked``, the coordinates, the model's forward and
   the store into the volume; ``separable``, the decoder on the chunk's rows
   of the grid's features and the store;
-- ``mri.grid.to_host``: the volume's (and latents') copy to host memory,
+- ``mri.grid.to_host``: by the request's transfer
+  (``infer.grid.TRANSFERS``): ``pinned``, the wait for the last slab's copy
+  to pinned host memory (the slabs before it were copied while the chunks
+  computed); ``pageable``, the volume's (and latents') copy to host memory,
   the 16-bit quantisation included: the wait for queued work and the copy;
 - ``mri.op.launch``: a kernel's ctypes launch, inside the dispatcher's
   ``mri_torch::*`` event;

@@ -18,6 +18,9 @@ Tolerances and their reasons:
   JAX's u16 volume, plus the f32 bound above).
 """
 
+import contextlib
+import types
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -403,3 +406,86 @@ def test_fused_grid_matches_jax(lo, hi, chunk_size):
     got = evaluate_grid(tm, shape, lo=lo, hi=hi, chunk_size=chunk_size, device="cpu")
     assert ROUTES["fused_grid"] == 1
     np.testing.assert_allclose(got, want, rtol=0, atol=ATOL)
+
+
+# ---------------------------------------------------------------------------
+# the volume's transfer to host memory: pinned slab by slab on the card, pageable otherwise
+
+@pytest.mark.parametrize("case", ["f32", "u16", "return_latents"])
+def test_transfers_count_pageable_once_a_request_on_the_cpu(case):
+    """``TRANSFERS`` counts each request once: on the CPU device every
+    request, ``u16`` and ``return_latents`` included, is ``pageable``."""
+    from mri_interpolation_tpu_torch.infer import TRANSFERS, reset_transfers
+
+    model = make_hash_mlp(3, device="cpu", **{**PROTOCOL, "log2_hashmap_size": 8})
+    options = {"u16": {"transport": "u16"}, "return_latents": {"return_latents": True}}.get(case, {})
+    reset_transfers()
+    for _ in range(2):
+        evaluate_grid(model, (6, 5, 4), chunk_size=32, device="cpu", **options)
+    assert TRANSFERS == {"pinned": 0, "pageable": 2}
+
+
+def test_reset_transfers_zeroes_the_counter():
+    from mri_interpolation_tpu_torch.infer import TRANSFERS, reset_transfers
+
+    evaluate_grid(_fused_model("3d_all_hashed"), (6, 5, 4), chunk_size=32, device="cpu")
+    assert TRANSFERS["pageable"] > 0
+    reset_transfers()
+    assert TRANSFERS == {"pinned": 0, "pageable": 0}
+
+
+class _InOrderStream:
+    """A copy stream on the CPU: each copy runs when it is issued; counts the
+    slabs by their events."""
+
+    def __init__(self):
+        self.slabs = 0
+
+    def wait_stream(self, stream):
+        pass
+
+    def record_event(self):
+        self.slabs += 1
+        return types.SimpleNamespace(synchronize=lambda: None)
+
+
+# (route, grid shape, chunk size, chunks a slab): padded tails, chunk counts that are not a multiple of the slab, one
+# chunk for the whole grid, one chunk a slab
+SLAB_CASES = [
+    ("fused_grid", (9, 10, 11), 128, 3), ("fused_grid", (9, 10, 11), 128, 1), ("fused_grid", (5, 4, 3), 1 << 17, 4),
+    ("separable", (9, 10, 11), 100, 4), ("separable", (7, 3, 2), 50, 1),
+    ("chunked", (6, 5, 4), 32, 2), ("chunked", (6, 5, 4), 7, 5),
+]
+
+
+@pytest.mark.parametrize("route, shape, chunk, per_slab", SLAB_CASES)
+def test_pinned_volume_copies_every_row_once_slab_by_slab(monkeypatch, route, shape, chunk, per_slab):
+    """The slab bookkeeping of the pinned transfer, on the CPU with a stream
+    that copies at once: the destination equals the device-side volume bit
+    for bit, no row left unwritten, one slab a ``per_slab`` chunks and one
+    for the rest. ``chunked`` runs a decoder of 2 outputs."""
+    from mri_interpolation_tpu_torch.infer import ROUTES, reset_routes
+    from mri_interpolation_tpu_torch.infer import grid as g
+
+    if route == "fused_grid":
+        model = _fused_model("3d_hashed_level")
+    elif route == "separable":
+        model = make_hash_mlp(3, device="cpu", **PROTOCOL)
+    else:
+        model = make_hash_mlp(3, device="cpu", **{**PROTOCOL, "log2_hashmap_size": 8, "decoder": "norm", "dim_out": 2})
+    n = int(np.prod(shape))
+    dim_out = model.dim_out
+    monkeypatch.setattr(g, "_SLAB_BYTES", per_slab * min(chunk, n) * dim_out * 4)
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda device=None: None)
+    monkeypatch.setattr(torch.cuda, "stream", lambda stream: contextlib.nullcontext())
+    stream = _InOrderStream()
+    host = g._PinnedVolume(torch.full((n, dim_out), float("nan")), chunk, stream)
+    args = (model, shape, 0.0, 1.0, chunk, torch.device("cpu"), None, None, False)
+    reset_routes()
+    with torch.no_grad():
+        want = g._grid_on_device(*args)[0]
+        g._grid_on_device(*args, host)
+    assert ROUTES[route] == 2
+    got = host.volume()
+    assert got.shape == (n, dim_out) and not np.isnan(got).any() and np.array_equal(got, want.numpy())
+    assert stream.slabs == -(-(-(-n // chunk)) // per_slab)
