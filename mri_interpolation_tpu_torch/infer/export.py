@@ -4,12 +4,12 @@
 Port of ``mri_interpolation_tpu/infer/export.py``, which exports a
 zero-argument StableHLO function that scans every chunk of the grid. Here
 the program is ONE chunk: its input is a 0-d int64 ``start``; in the graph
-it makes ``flat = min(start + arange(chunk), n - 1)``, the coordinates
-(``flat_index_to_coords``) and the model's output in eval mode, with the
-parameters and buffers saved beside the graph and a multi-frame model's
-``frame_idx`` fixed. The loader walks the chunks in Python and trims the
-padded tail. ``start`` stays a tensor: an int would be specialised, one
-program a chunk.
+it makes ``flat = min(start + arange(chunk), n - 1)`` (``chunk_index``),
+the coordinates (``flat_index_to_coords``) and the model's output in eval
+mode, with the parameters and buffers saved beside the graph and a
+multi-frame model's ``frame_idx`` fixed. The loader walks the chunks in
+Python and trims the padded tail. ``start`` stays a tensor: an int would be
+specialised, one program a chunk.
 
 The file is a ``.pt2`` archive (``torch.export.save``), not StableHLO, with
 ``evaluator.json`` (shape, lo, hi, chunk size, n, dim_out, device, table
@@ -38,7 +38,8 @@ from torch import nn
 from .. import ops  # noqa: F401  (registers torch.ops.mri_torch.*, which the programs call)
 from ..device import DeviceLike, resolve_device
 from ..models.core import Model
-from .grid import _check_model_on, flat_index_to_coords
+from ..ops.hash_mlp_grid import chunk_index, flat_index_to_coords
+from .grid import _check_model_on, _volume
 
 __all__ = ["save_evaluator", "load_evaluator", "export_evaluator_bytes", "quantize_tables"]
 
@@ -74,8 +75,7 @@ class _ChunkProgram(nn.Module):
         self.n = int(np.prod(shape))
 
     def forward(self, start: torch.Tensor) -> torch.Tensor:
-        flat = torch.clamp(start + torch.arange(self.chunk, device=start.device), max=self.n - 1)
-        x = flat_index_to_coords(flat, self.shape, self.lo, self.hi)
+        x = flat_index_to_coords(chunk_index(start, self.chunk, self.n, start.device), self.shape, self.lo, self.hi)
         return self.model(x) if self.frame_idx is None else self.model(x, frame_idx=self.frame_idx)
 
 
@@ -148,6 +148,6 @@ def load_evaluator(path: str) -> Callable[[], np.ndarray]:
             for c in range(n_chunks):
                 out[c * chunk:(c + 1) * chunk] = program(starts[c])
             vol = out[:n].cpu().numpy()
-        return vol.reshape(shape) if vol.shape[-1] == 1 else vol.reshape(shape + (vol.shape[-1],))
+        return _volume(vol, shape)
 
     return fn

@@ -3,9 +3,10 @@
 Port of ``mri_interpolation_tpu/infer/grid.py``: coordinates are made on the
 device from flat voxel indices (index -> mixed-radix digits -> linspace
 values), so a grid of any shape costs no host grid and no transfer but the
-result. The grid is walked in fixed chunks of ``chunk_size`` voxels, the
-padded tail repeating the last voxel. A request takes one of three routes,
-counted in :data:`ROUTES`:
+result. Every dense evaluation (these, and the parallel evaluators) goes
+through one chunk walk, ``_walk``, its padded tail repeating the last voxel
+(``ops.hash_mlp_grid.chunk_index``). A request takes one of three routes,
+each a writer of the walk chosen once, counted in :data:`ROUTES`:
 
 - ``separable``: a model with the encode/decode split (:func:`has_split`)
   whose encoder is all dense, on a [0, 1] grid with no ``transform``, as in
@@ -13,8 +14,9 @@ counted in :data:`ROUTES`:
   a time (``apply_grid``), then decoded chunk by chunk. It computes the same
   function as the per-point encode: the tests hold ``apply_grid`` equal to
   it to 1e-6;
-- ``fused_grid``: a HashMLP with the fused decoder (``relu_plain``) and no
-  level anneal, with no ``transform``, ``frame_idx`` or ``return_latents``,
+- ``fused_grid``: a model whose ``fused_grid_args()`` gives the op's model
+  arguments (a HashMLP with the fused ``relu_plain`` decoder and no level
+  anneal), with no ``transform``, ``frame_idx`` or ``return_latents``,
   where the separable route does not apply: a chunk is one call of the op
   ``hash_mlp_grid_forward`` (``ops/hash_mlp_grid.py``), kernel 1 making the
   chunk's coordinates itself and kernel 5 writing the volume's rows, bit
@@ -39,8 +41,8 @@ The volume reaches host memory by one of two transfers, counted in
   volume's range first, and ``return_latents``): one copy of the whole
   volume after the last chunk.
 
-``predict_batched`` runs the same chunked forward over an explicit
-coordinate matrix (the launcher's periodic eval).
+``predict_batched`` walks the model's forward over an explicit coordinate
+matrix (the launcher's periodic eval).
 """
 
 from __future__ import annotations
@@ -53,9 +55,7 @@ import torch
 
 from ..device import DeviceLike, resolve_device
 from ..models.core import Model
-from ..models.hash_mlp import HashGridEncoder, HashMLP, as_f32
-from ..ops import fused_mlp as fm
-from ..ops.hash_mlp_grid import flat_index_to_coords, grid_forward
+from ..ops.hash_mlp_grid import chunk_index, flat_index_to_coords, grid_forward
 from ..tracing import span
 
 __all__ = ["flat_index_to_coords", "evaluate_grid", "device_eval_seconds", "has_split", "predict_batched",
@@ -136,35 +136,35 @@ def _padded_chunk(rows: torch.Tensor, size: int) -> torch.Tensor:
     return rows if len(rows) == size else torch.cat([rows, rows[-1:].expand(size - len(rows), -1)])
 
 
-def _eval_chunks(model: Model, n: int, chunk_size: int, dev: torch.device,
-                 chunk_eval: Callable[[int, int], Tuple[torch.Tensor, Optional[torch.Tensor]]],
-                 host: Optional[_PinnedVolume] = None):
-    """The model in eval mode on ``n`` rows, ``chunk_size`` a chunk:
-    ``chunk_eval(start, stop)`` gives a chunk's output and its latents or
-    None (rows past n repeat the last). Returns the (n, dim_out) output and
-    the (n, features) latents or None, on the device; ``host``, if given,
-    receives the output's slabs as they are stored."""
+def _walk(model: Model, n: int, chunk_size: int, dev: torch.device, write: Callable[[int, int, torch.Tensor], None],
+          host: Optional[_PinnedVolume] = None, n_chunks: Optional[int] = None) -> torch.Tensor:
+    """The chunk walk of every dense evaluation: ``n`` rows in chunks of
+    ``chunk_size`` (at most n), the model in eval mode (its training flag
+    restored after). ``write(start, stop, out)`` fills rows [start, stop) of
+    the padded (n_chunks * chunk_size, dim_out) float32 ``out`` on ``dev``,
+    under an ``mri.grid.chunk`` span; ``n_chunks`` defaults to the chunks
+    that cover n rows (a striped evaluator gives its share). ``host``, if
+    given, receives the output's slabs as they are stored. Returns
+    ``out[:n]``."""
     chunk_size = min(chunk_size, n)
-    n_chunks = -(-n // chunk_size)
+    n_chunks = -(-n // chunk_size) if n_chunks is None else n_chunks
     out = torch.empty((n_chunks * chunk_size, model.dim_out), dtype=torch.float32, device=dev)
-    latents = None
     was_training = model.training
     model.eval()
     try:
-        for c in range(n_chunks):
+        for stop in range(chunk_size, len(out) + 1, chunk_size):
             with span("mri.grid.chunk"):
-                start, stop = c * chunk_size, (c + 1) * chunk_size
-                y, z = chunk_eval(start, stop)
-                out[start:stop] = y
-                if z is not None:
-                    if latents is None:
-                        latents = torch.empty((len(out), z.shape[-1]), dtype=torch.float32, device=dev)
-                    latents[start:stop] = z
+                write(stop - chunk_size, stop, out)
             if host is not None:
                 host.stored(out, stop)
     finally:
         model.train(was_training)
-    return out[:n], (None if latents is None else latents[:n])
+    return out[:n]
+
+
+def _volume(arr: np.ndarray, shape: Tuple[int, ...]) -> np.ndarray:
+    """(n, k) rows as a volume of ``shape``, plus a trailing axis when k > 1."""
+    return arr.reshape(shape) if arr.shape[-1] == 1 else arr.reshape(shape + (arr.shape[-1],))
 
 
 def has_split(model: Model) -> bool:
@@ -185,7 +185,8 @@ def _grid_on_device(model: Model, shape, lo: float, hi: float, chunk_size: int, 
                     host: Optional[_PinnedVolume] = None):
     """The device side of :func:`evaluate_grid`: (n, dim_out) and the raw
     latents (n, features) or None, on ``dev``; ``host``, if given, receives
-    the volume's slabs as the chunk loop stores them."""
+    the volume's slabs as the chunk walk stores them. The route is chosen
+    once, as the walk's writer."""
     n = int(np.prod(shape))
     split = has_split(model) and frame_idx is None
     if return_latents and not split:
@@ -197,52 +198,44 @@ def _grid_on_device(model: Model, shape, lo: float, hi: float, chunk_size: int, 
         ROUTES["separable"] += 1
         with span("mri.grid.encode"):
             z = geometry.apply_grid(model.encoder.table.float(), shape, lo, hi)  # (n, L*F), once for the grid
-        y, _ = _eval_chunks(model, n, chunk_size, dev,
-                            lambda start, stop: (_decode_weighted(model, _padded_chunk(z[start:stop], stop - start)),
-                                                 None), host)
-        return y, (z if return_latents else None)
-    if (split and transform is None and not return_latents and isinstance(model, HashMLP) and model.fused
-            and isinstance(model.encoder, HashGridEncoder) and model.anneal_weights() is None):
+
+        def write(start: int, stop: int, out: torch.Tensor) -> None:
+            out[start:stop] = _decode_weighted(model, _padded_chunk(z[start:stop], stop - start))
+
+        return _walk(model, n, chunk_size, dev, write, host), (z if return_latents else None)
+    fused = (model.fused_grid_args() if split and transform is None and not return_latents
+             and callable(getattr(model, "fused_grid_args", None)) else None)
+    if fused is not None:
         ROUTES["fused_grid"] += 1
-        return _fused_grid(model, shape, lo, hi, chunk_size, dev, host), None
+        table, params, acts, key = fused
+        scratch = torch.empty((min(chunk_size, n), params[0].shape[0]), dtype=torch.float32, device=dev)
+        grid = list(shape)
+
+        def write(start: int, stop: int, out: torch.Tensor) -> None:
+            grid_forward(table, params, acts, key, grid, lo, hi, start, scratch, out)
+
+        return _walk(model, n, chunk_size, dev, write, host), None
     ROUTES["chunked"] += 1
+    kwargs = {} if frame_idx is None else {"frame_idx": frame_idx}
+    latents = None  # with return_latents: the padded (rows, features) buffer, made at the first chunk
 
-    def chunk_coords(start: int, stop: int) -> torch.Tensor:
-        flat = torch.arange(start, stop, device=dev).clamp_(max=n - 1)
-        x = flat_index_to_coords(flat, shape, lo, hi)
-        return x if transform is None else transform(x)
-
-    def chunk_eval(start: int, stop: int):
-        x = chunk_coords(start, stop)
+    def write(start: int, stop: int, out: torch.Tensor) -> None:
+        nonlocal latents
+        x = flat_index_to_coords(chunk_index(start, stop - start, n, dev), shape, lo, hi)
+        if transform is not None:
+            x = transform(x)
         if not split:
-            return model(x, **({} if frame_idx is None else {"frame_idx": frame_idx})), None
+            out[start:stop] = model(x, **kwargs)
+            return
         z = model.encode(x)
-        return _decode_weighted(model, z), (z if return_latents else None)
+        out[start:stop] = _decode_weighted(model, z)
+        if return_latents:
+            if latents is None:
+                latents = out.new_empty((len(out), z.shape[-1]))
+            latents[start:stop] = z
 
-    return _eval_chunks(model, n, chunk_size, dev, chunk_eval, host)
-
-
-def _fused_grid(model: HashMLP, shape, lo: float, hi: float, chunk_size: int, dev: torch.device,
-                host: Optional[_PinnedVolume] = None) -> torch.Tensor:
-    """The ``fused_grid`` route: (n, dim_out) on ``dev``, one op call a
-    chunk, its arguments and feature buffer made once for the request;
-    ``host``, if given, receives the volume's slabs as they are stored."""
-    n = int(np.prod(shape))
-    chunk_size = min(chunk_size, n)
-    n_chunks = -(-n // chunk_size)
-    enc = model.encoder.geometry
-    out = torch.empty((n_chunks * chunk_size, model.dim_out), dtype=torch.float32, device=dev)
-    scratch = torch.empty((chunk_size, enc.output_dim), dtype=torch.float32, device=dev)
-    table = as_f32(model.encoder.table).detach()
-    params = [t.detach() for layer in model.layers for t in (layer.w, layer.b)]
-    acts = list(fm.act_words(fm.mlp_acts(len(model.layers) - 1, "relu")))
-    geometry, grid = list(enc.geometry_key()), list(shape)
-    for c in range(n_chunks):
-        with span("mri.grid.chunk"):
-            grid_forward(table, params, acts, geometry, grid, lo, hi, c * chunk_size, scratch, out)
-        if host is not None:
-            host.stored(out, (c + 1) * chunk_size)
-    return out[:n]
+    y = _walk(model, n, chunk_size, dev, write, host)
+    return y, (None if latents is None else latents[:n])
 
 
 def _quantise_u16(y: torch.Tensor):
@@ -290,10 +283,6 @@ def evaluate_grid(model: Model, shape: Sequence[int], lo: float = 0.0, hi: float
         else:
             TRANSFERS["pageable"] += 1
         y, z = _grid_on_device(model, shape, lo, hi, chunk_size, dev, frame_idx, transform, return_latents, host)
-
-        def to_volume(arr: np.ndarray) -> np.ndarray:
-            return arr.reshape(shape) if arr.shape[-1] == 1 else arr.reshape(shape + (arr.shape[-1],))
-
         with span("mri.grid.to_host"):
             if host is not None:
                 vol = host.volume()
@@ -305,7 +294,7 @@ def evaluate_grid(model: Model, shape: Sequence[int], lo: float = 0.0, hi: float
             else:
                 vol = y.cpu().numpy()
             latents = z.cpu().numpy() if return_latents else None
-        return (to_volume(vol), to_volume(latents)) if return_latents else to_volume(vol)
+        return (_volume(vol, shape), _volume(latents, shape)) if return_latents else _volume(vol, shape)
 
 
 @torch.no_grad()
@@ -344,6 +333,8 @@ def predict_batched(model: Model, coords: np.ndarray, chunk_size: int = 1 << 17,
     _check_model_on(model, dev)
     x = torch.as_tensor(np.asarray(coords, dtype=np.float32)).to(dev)
     kwargs = {} if frame_idx is None else {"frame_idx": frame_idx}
-    y, _ = _eval_chunks(model, x.shape[0], chunk_size, dev,
-                        lambda start, stop: (model(_padded_chunk(x[start:stop], stop - start), **kwargs), None))
-    return y.cpu().numpy()
+
+    def write(start: int, stop: int, out: torch.Tensor) -> None:
+        out[start:stop] = model(_padded_chunk(x[start:stop], stop - start), **kwargs)
+
+    return _walk(model, x.shape[0], chunk_size, dev, write).cpu().numpy()

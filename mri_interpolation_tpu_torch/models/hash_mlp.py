@@ -29,7 +29,7 @@ Options, with the JAX factory's semantics:
 
 from __future__ import annotations
 
-from typing import Optional, Sequence, Union
+from typing import List, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -37,7 +37,7 @@ from torch import nn
 
 from ..device import DeviceLike, resolve_device
 from ..encodings.hashgrid import HashGridEncoding, temporal_table_tv
-from ..ops.fused_mlp import fused_mlp_apply
+from ..ops import fused_mlp as fm
 from ..ops.hash_encode import HashEncode
 from .core import BatchNorm, Dense, Model, dense_init, dropout
 
@@ -47,6 +47,7 @@ _ACTS = {
     "gelu": lambda z: F.gelu(z, approximate="tanh"),
     "relu": F.relu,
 }
+_FUSED_ACT = "relu"  # the relu_plain decoder's activation between its layers
 
 
 class HashGridEncoder(nn.Module):
@@ -110,7 +111,7 @@ class HashMLP(Model):
     def decode(self, z: torch.Tensor) -> torch.Tensor:
         """Dropout draws from torch's default generator of z's device."""
         if self.fused:
-            return fused_mlp_apply([layer.params for layer in self.layers], z, "relu")
+            return fm.fused_mlp_apply([layer.params for layer in self.layers], z, _FUSED_ACT)
         for i, layer in enumerate(self.layers):
             z = layer(z)
             if i < len(self.bn):
@@ -126,6 +127,15 @@ class HashMLP(Model):
         if self.level_anneal_steps <= 0:
             return None
         return level_anneal_weights(self.anneal_step, self.level_anneal_steps, self.encoder.geometry)
+
+    def fused_grid_args(self) -> Optional[Tuple[torch.Tensor, List[torch.Tensor], List[float], List[int]]]:
+        """The op ``hash_mlp_grid_forward``'s model arguments, detached: the float32 table, the decoder's
+        ``[w_0, b_0, ...]``, its act words and the geometry key; None for an unfused decoder or a level anneal."""
+        if not self.fused or self.level_anneal_steps > 0:
+            return None
+        params = [t.detach() for layer in self.layers for t in (layer.w, layer.b)]
+        acts = list(fm.act_words(fm.mlp_acts(len(self.layers) - 1, _FUSED_ACT)))
+        return as_f32(self.encoder.table).detach(), params, acts, list(self.encoder.geometry.geometry_key())
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         z = self.encode(x)

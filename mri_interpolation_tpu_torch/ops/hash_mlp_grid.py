@@ -36,7 +36,14 @@ from . import build
 from . import fused_mlp as fm
 from . import hash_encode as he
 
-__all__ = ["flat_index_to_coords", "grid_forward"]
+__all__ = ["chunk_index", "flat_index_to_coords", "grid_forward"]
+
+
+def chunk_index(start, rows: int, n: int, device=None) -> torch.Tensor:
+    """The flat voxel indices of the chunk of ``rows`` voxels from ``start``
+    (an int, or a 0-d int64 tensor on ``device``) of a grid of ``n`` voxels:
+    past the last voxel they repeat it (the padded tail)."""
+    return torch.arange(rows, device=device).add_(start).clamp_(max=n - 1)
 
 
 def flat_index_to_coords(flat_idx: torch.Tensor, shape: Sequence[int], lo: float = 0.0,
@@ -74,7 +81,7 @@ def _voxels(shape: Sequence[int]) -> int:
 def _forward_cpu(table, params, acts, geometry, shape, lo, hi, start, scratch, out) -> None:
     enc = HashGridEncoding.from_key(geometry)
     rows = scratch.shape[0]
-    flat = torch.arange(start, start + rows).clamp_(max=_voxels(shape) - 1)
+    flat = chunk_index(start, rows, _voxels(shape))
     scratch.copy_(he.hash_encode_reference(enc, table, flat_index_to_coords(flat, shape, lo, hi)))
     out[start:start + rows] = fm.mlp_forward_reference(params[0::2], params[1::2], scratch,
                                                        fm._acts_of(tuple(acts)))

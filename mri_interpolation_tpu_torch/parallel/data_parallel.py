@@ -41,8 +41,9 @@ from typing import Callable, Optional, Sequence, Union
 import numpy as np
 import torch
 
-from ..infer.grid import _check_model_on, flat_index_to_coords
+from ..infer.grid import _check_model_on, _volume, _walk
 from ..models.core import Model
+from ..ops.hash_mlp_grid import chunk_index, flat_index_to_coords
 from ..train.losses import get_loss
 from ..train.trainer import TrainConfig, Trainer, TrainResult, _Ranks, _refuse_complex, _step_loss, _Updates
 from .mesh import RankGroup, all_gather, make_mesh, mean_over_ranks
@@ -210,10 +211,11 @@ def evaluate_grid_sharded(model: Model, shape: Sequence[int], mesh: Optional[Ran
     the whole volume (``shape``, plus a trailing axis when dim_out > 1).
 
     The chunk is ``min(chunk_size, ceil(n / world))`` voxels; rank r takes
-    ``chunks_per_rank`` consecutive chunks from ``r * chunks_per_rank``, each
-    chunk's flat indices clamped to ``n - 1``, synthesises their coordinates
-    on its device (``infer.flat_index_to_coords``) and runs the model's
-    forward; one ``all_gather`` brings the ranks' outputs together."""
+    ``chunks_per_rank`` consecutive chunks from ``r * chunks_per_rank``
+    through the grid's chunk walk (the padded tail repeats the last voxel),
+    synthesises their coordinates on its device
+    (``infer.flat_index_to_coords``) and runs the model's forward; one
+    ``all_gather`` brings the ranks' outputs together."""
     mesh = mesh if mesh is not None else make_mesh()
     world, rank, dev = mesh.world_size, mesh.rank, mesh.device
     _check_model_on(model, dev)
@@ -221,15 +223,10 @@ def evaluate_grid_sharded(model: Model, shape: Sequence[int], mesh: Optional[Ran
     n = int(np.prod(shape))
     chunk_size = min(chunk_size, -(-n // world))
     chunks_per_rank = -(-n // (world * chunk_size))
-    out = torch.empty((chunks_per_rank * chunk_size, model.dim_out), dtype=torch.float32, device=dev)
-    was_training = model.training
-    model.eval()
-    try:
-        for c in range(chunks_per_rank):
-            start = (rank * chunks_per_rank + c) * chunk_size
-            flat = torch.arange(start, start + chunk_size, device=dev).clamp_(max=n - 1)
-            out[c * chunk_size:(c + 1) * chunk_size] = model(flat_index_to_coords(flat, shape, lo, hi))
-    finally:
-        model.train(was_training)
-    vol = all_gather(mesh, out).reshape(-1, model.dim_out)[:n].cpu().numpy()
-    return vol.reshape(shape) if vol.shape[-1] == 1 else vol.reshape(shape + (vol.shape[-1],))
+    first = rank * chunks_per_rank * chunk_size  # this rank's first voxel
+
+    def write(start: int, stop: int, out: torch.Tensor) -> None:
+        out[start:stop] = model(flat_index_to_coords(chunk_index(first + start, stop - start, n, dev), shape, lo, hi))
+
+    out = _walk(model, n, chunk_size, dev, write, n_chunks=chunks_per_rank)
+    return _volume(all_gather(mesh, out).reshape(-1, model.dim_out)[:n].cpu().numpy(), shape)

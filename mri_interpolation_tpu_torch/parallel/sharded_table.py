@@ -40,9 +40,10 @@ import torch
 import torch.distributed as dist
 
 from ..encodings.hashgrid import HashGridEncoding
-from ..infer.grid import flat_index_to_coords
+from ..infer.grid import _volume, _walk
 from ..models.core import Model
 from ..models.hash_mlp import as_f32
+from ..ops.hash_mlp_grid import chunk_index, flat_index_to_coords
 from ..train.losses import get_loss
 from ..train.trainer import (EpochHooks, TrainConfig, TrainResult, _checkpoint_fires, _eval_fires, _result,
                              _step_loss, _Updates)
@@ -322,19 +323,12 @@ def evaluate_grid_sharded_table(model: Model, plan: TableShardingPlan, mesh: Ran
     encode = make_sharded_encode(enc, plan, mesh)
     shape = tuple(int(s) for s in shape)
     n = int(np.prod(shape))
-    chunk_size = min(chunk_size, n)
-    n_chunks = -(-n // chunk_size)
-    out = torch.empty((n_chunks * chunk_size, model.dim_out), dtype=torch.float32, device=mesh.device)
-    was_training = model.training
-    model.eval()
-    try:
-        for c in range(n_chunks):
-            flat = torch.arange(c * chunk_size, (c + 1) * chunk_size, device=mesh.device).clamp_(max=n - 1)
-            out[c * chunk_size:(c + 1) * chunk_size] = model.decode(
-                encode(shard, flat_index_to_coords(flat, shape, lo, hi)))
-    finally:
-        model.train(was_training)
-    return out[:n].cpu().numpy().reshape(shape)
+
+    def write(start: int, stop: int, out: torch.Tensor) -> None:
+        x = flat_index_to_coords(chunk_index(start, stop - start, n, mesh.device), shape, lo, hi)
+        out[start:stop] = model.decode(encode(shard, x))
+
+    return _volume(_walk(model, n, chunk_size, mesh.device, write).cpu().numpy(), shape)
 
 
 class ShardedHashTrainer:

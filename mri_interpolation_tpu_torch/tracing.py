@@ -30,7 +30,8 @@ launches, syncs).
   predictions of each voxel and the MSE against the targets;
 - ``mri.grid.request``: one ``evaluate_grid`` call;
 - ``mri.grid.encode``: the separable route's ``apply_grid`` of the whole grid;
-- ``mri.grid.chunk``: one chunk of a request, by route
+- ``mri.grid.chunk``: one writer call of the chunk walk (``infer.grid._walk``,
+  also under ``predict_batched`` and the parallel evaluators); by route
   (``infer.grid.ROUTES``): ``fused_grid``, the one call of the op
   ``hash_mlp_grid_forward`` (kernel 1 makes the coordinates, kernel 5
   stores the rows); ``chunked``, the coordinates, the model's forward and

@@ -157,10 +157,7 @@ class _Updates:
     then the running mean of ``accumulate_grad_batches`` mini-steps (optax's
     Welford form, ``acc + (g - acc) / (n + 1)``), then Adam (with its L2
     weight decay) at the scheduled rate once per window. A partial window at
-    the end of a fit makes no update. With no mask, no accumulation and a
-    constant rate the chain is Adam alone, and :meth:`step` is torch Adam's
-    step (which would skip a parameter the loss did not reach; every
-    parameter of the port's models reaches it)."""
+    the end of a fit makes no update."""
 
     def __init__(self, cfg: TrainConfig, params: Union[Model, Dict[str, torch.nn.Parameter]], n_steps_per_epoch: int,
                  freeze_mask_fn: Optional[Callable] = None):
@@ -177,7 +174,6 @@ class _Updates:
         self.k = cfg.accumulate_grad_batches
         if self.k < 1:
             raise ValueError(f"accumulate_grad_batches must be >= 1, got {self.k}")
-        self.plain = not self.frozen and self.k == 1 and cfg.lr_schedule is None
         self.updates = 0  # inner updates so far: Adam's and the schedule's count
         self.mini_step = 0
         self.acc: Optional[List[torch.Tensor]] = None
@@ -186,10 +182,6 @@ class _Updates:
         self.optimizer.zero_grad(set_to_none=True)
 
     def step(self) -> None:
-        if self.plain:
-            self.optimizer.step()
-            self.updates += 1
-            return
         for p in self.params:
             if p.grad is None:  # the JAX gradient of an unused leaf is zero, and Adam still moves it
                 p.grad = torch.zeros_like(p)

@@ -489,3 +489,81 @@ def test_pinned_volume_copies_every_row_once_slab_by_slab(monkeypatch, route, sh
     got = host.volume()
     assert got.shape == (n, dim_out) and not np.isnan(got).any() and np.array_equal(got, want.numpy())
     assert stream.slabs == -(-(-(-n // chunk)) // per_slab)
+
+
+# ---------------------------------------------------------------------------
+# the chunk walk that every route and predict_batched share
+
+WALK_ROUTES = {
+    "separable": lambda: make_hash_mlp(3, device="cpu", **PROTOCOL),
+    "fused_grid": lambda: _fused_model("3d_hashed_level"),
+    "chunked": lambda: make_hash_mlp(3, device="cpu", **{**PROTOCOL, "log2_hashmap_size": 8, "decoder": "norm"}),
+    "predict_batched": lambda: make_hash_mlp(3, device="cpu", **{**PROTOCOL, "decoder": "norm"}),
+}
+
+
+@pytest.mark.parametrize("chunk", [32, 1 << 10, 120], ids=["padded_tail", "chunk_above_n", "chunk_equal_n"])
+@pytest.mark.parametrize("route", sorted(WALK_ROUTES))
+def test_the_walk_gives_the_unchunked_forward(monkeypatch, route, chunk):
+    """Each route, and ``predict_batched``, through the one walker: the
+    volume is the model's forward on the whole grid in eval mode (the norm
+    decoders' BatchNorm tells the modes apart), the padded rows of the
+    walk's volume repeat the last voxel and never reach the result, and a
+    model in training mode comes back in training mode."""
+    from mri_interpolation_tpu_torch.infer import ROUTES, predict_batched, reset_routes
+    from mri_interpolation_tpu_torch.infer import grid as g
+
+    shape, n = (6, 5, 4), 120
+    model = WALK_ROUTES[route]()
+    walk, outs = g._walk, []
+
+    def recording(model, n, chunk_size, dev, write, *args, **kwargs):
+        def write_and_keep(start, stop, out):
+            outs.append(out)
+            write(start, stop, out)
+
+        return walk(model, n, chunk_size, dev, write_and_keep, *args, **kwargs)
+
+    monkeypatch.setattr(g, "_walk", recording)
+    x = flat_index_to_coords(torch.arange(n), shape)
+    with torch.no_grad():
+        want = model.eval()(x).numpy()
+    model.train()
+    reset_routes()
+    if route == "predict_batched":
+        got = predict_batched(model, x.numpy(), chunk_size=chunk, device="cpu")
+        assert got.shape == (n, 1)
+    else:
+        got = evaluate_grid(model, shape, chunk_size=chunk, device="cpu")
+        assert got.shape == shape and ROUTES[route] == 1
+    assert model.training and all(m.training for m in model.modules())
+    rows = min(chunk, n)
+    assert {id(out) for out in outs} == {id(outs[0])} and len(outs) == -(-n // rows)
+    padded = outs[0]
+    assert len(padded) == len(outs) * rows
+    assert torch.equal(padded[n:], padded[n - 1:n].expand(len(padded) - n, -1))
+    np.testing.assert_array_equal(got.reshape(n, 1), padded[:n].numpy())
+    np.testing.assert_allclose(got.reshape(n, 1), want, rtol=0, atol=ATOL)
+
+
+def test_fused_grid_args_feed_the_op_as_the_models_forward():
+    """``HashMLP.fused_grid_args`` is None for a decoder that is not fused
+    and under a level anneal; otherwise the op's CPU impl, fed those
+    arguments, gives ``model(x)`` on a grid chunk bit for bit, as the op's
+    own test, a bf16-stored table read as float32."""
+    from mri_interpolation_tpu_torch.infer import quantize_tables
+    from mri_interpolation_tpu_torch.ops.hash_mlp_grid import grid_forward
+
+    dim, kw = FUSED["4d"]
+    assert make_hash_mlp(dim, device="cpu", **{**kw, "decoder": "norm"}).fused_grid_args() is None
+    assert make_hash_mlp(dim, device="cpu", **{**kw, "level_anneal_steps": 8}).fused_grid_args() is None
+    shape, n = (3, 5, 2, 7), 210
+    for model in (_fused_model("4d"), quantize_tables(_fused_model("4d", seed=1))):
+        table, params, acts, key = model.fused_grid_args()
+        assert table.dtype == torch.float32 and not table.requires_grad
+        assert len(params) == 2 * len(model.layers) and not any(p.requires_grad for p in params)
+        scratch, out = torch.zeros((64, params[0].shape[0])), torch.zeros((256, 1))
+        with torch.no_grad():
+            grid_forward(table, params, acts, key, list(shape), -1.0, 1.0, 192, scratch, out)
+            x = flat_index_to_coords(torch.arange(192, 256).clamp_(max=n - 1), shape, -1.0, 1.0)
+            assert torch.equal(out[192:], model.eval()(x))
