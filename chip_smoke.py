@@ -43,7 +43,11 @@ Phases, each printed with its time as it ends:
    profiler's device time, or CUDA events over a CUDA graph where it records
    none; kernel 5's forward rows hold its split prologue and its forward
    kernel), bounds (for kernels 5-6 also the 3xTF32 tensor-core bound) and
-   ``index_add_``'s time beside kernels 2 and 4;
+   ``index_add_``'s time beside kernels 2 and 4; and the sine-layer pair
+   (one SIREN sine layer's bias, w0 scale and sine after cuBLAS's product,
+   forward and backward) at the PSF SIREN's 512,000 x 256 and a ragged row
+   count, timed beside its byte bound, its plain versions and the chain
+   autograd ran;
 4. small fit: ``Trainer.fit`` on the card against the same fit on the CPU, for
    the flagship HashMLP, a small SIREN and a small ``relu_plain`` HashMLP
    with ``adam_tcnn``; ``Trainer.fit_frames`` likewise for a small
@@ -102,7 +106,9 @@ Phases, each printed with its time as it ends:
    - hash_siren (64x4, 10 levels, batch 20,000, zero-centred: 92 steps,
      kernel 1 on every grid chunk), modulated_siren (256x4, batch 20,000:
      92 steps) and psf_siren (256x5, 5^3 PSF points, batch 4096: 453 steps
-     of 512,000-row plain forwards; its spacing checked);
+     of 512,000-row forwards, cuBLAS's products and the sine-layer pair once
+     a sine layer and step, the forward once a sine layer and grid chunk;
+     its spacing checked);
    - flagship_undersample: the flagship on the 10% of the voxels that
      seed 1337's mask keeps (kept // 10,000 steps);
    - warp_protocol: ``launcher.main --model_class warp_inr
@@ -277,6 +283,8 @@ SOURCES = {
     "hash_encode_coarse_table_grad": CSRC + "hash_encode.cu",
     "fused_mlp_forward": CSRC + "fused_mlp.cu",
     "fused_mlp_backward": CSRC + "fused_mlp.cu",
+    "sine_layer_forward": CSRC + "sine_layer.cu",
+    "sine_layer_backward": CSRC + "sine_layer.cu",
     "probe": CSRC + "probe.cu",
 }
 REPLACES = {
@@ -286,6 +294,9 @@ REPLACES = {
     "hash_encode_coarse_table_grad": "mri_interpolation_tpu/ops/pallas/hash_encode.py:372",
     "fused_mlp_forward": "mri_interpolation_tpu/ops/pallas/fused_mlp.py:185",
     "fused_mlp_backward": "mri_interpolation_tpu/ops/pallas/fused_mlp.py:205",
+    # the JAX package leaves a sine layer's bias, w0 scale and sine to XLA
+    "sine_layer_forward": None,
+    "sine_layer_backward": None,
     "probe": "scripts/bench_pallas_exec.py:76",
 }
 VOLUME = (352, 352, 15)
@@ -1061,6 +1072,61 @@ def check_fused_mlp(torch, fm, dev):
     return rows
 
 
+SINE_SHAPES = ((512_000, 256), (4_097, 256))  # the PSF SIREN's step (4,096 centres x 125 points) and a ragged count
+SINE_RTOL = 1e-6  # of the norm: a and dz in autograd's order (expected equal), db summed in another order
+
+
+def check_sine_layer(torch, sl, dev):
+    """The sine-layer pair against its plain versions at the PSF SIREN's
+    512,000 x 256 (w0 30) and a ragged row count: a, dz and db within 1e-6
+    of the norm, two backward runs equal; times beside the byte bounds (2
+    passes forward, 3 backward), the plain versions' and, for the backward,
+    the chain autograd ran from the saved argument (cos, two products, the
+    sum); returns per-kernel rows."""
+    gen = torch.Generator(device="cpu").manual_seed(26)
+    rows = {"sine_layer_forward": [], "sine_layer_backward": []}
+    for n, width in SINE_SHAPES:
+        z = torch.randn((n, width), generator=gen).to(dev)
+        b = (torch.randn((width,), generator=gen) * 0.1).to(dev)
+        g = torch.randn((n, width), generator=gen).to(dev)
+        a = sl.sine_layer_forward(z, b, 30.0)
+        dz, db = sl.sine_layer_backward(g, z, b, 30.0)
+        again = sl.sine_layer_backward(g, z, b, 30.0)
+        a_ref = sl.sine_layer_reference(z, b, 30.0)
+        dz_ref, db_ref = sl.sine_layer_backward_reference(g, z, b, 30.0)
+        torch.cuda.synchronize()
+        errs = {key: float(torch.linalg.vector_norm((got - want).double()) / torch.linalg.vector_norm(want.double()))
+                for key, got, want in (("a", a, a_ref), ("dz", dz, dz_ref), ("db", db, db_ref))}
+        if not all(math.isfinite(e) and e <= SINE_RTOL for e in errs.values()):
+            fail(f"sine_layer {n} x {width}: relative errors {errs} (tolerance {SINE_RTOL})")
+        if not (torch.equal(again[0], dz) and torch.equal(again[1], db)):
+            fail(f"sine_layer_backward {n} x {width}: two runs differ")
+        u = 30.0 * (z + b)
+        chain = lambda: ((g * torch.cos(u)) * 30.0).sum(dim=0)  # noqa: E731
+        for name, call, plain, passes, err, equal in (
+                ("sine_layer_forward", lambda: sl.sine_layer_forward(z, b, 30.0),
+                 lambda: sl.sine_layer_reference(z, b, 30.0), 2, errs["a"], torch.equal(a, a_ref)),
+                ("sine_layer_backward", lambda: sl.sine_layer_backward(g, z, b, 30.0),
+                 lambda: sl.sine_layer_backward_reference(g, z, b, 30.0), 3, max(errs["dz"], errs["db"]),
+                 torch.equal(dz, dz_ref))):
+            bound, by = bound_ms(4.0 * (passes * n * width + width), 2.0 * passes * n * width)
+            # the backward: the elementwise kernel and the bias gradient's sum of the partials, per call
+            row = {"what": f"{n} x {width}, w0 30", "n": n, "width": width, "max_abs_err": err,
+                   "rel_errs": errs, "bitwise_equal": equal,
+                   **kernel_times(call, name + "_kernel" if passes == 2 else "sine_layer_b", per_call=passes == 3),
+                   "plain_ms": time_ms(plain), "bound_ms": bound, "bound_by": by, "library_ms": None,
+                   **({"autograd_chain_ms": time_ms(chain)} if passes == 3 else {})}
+            row["bound_share"] = bound / row["ms"]
+            rows[name].append(row)
+            log(f"  {name:19s} {n:>7,d} x {width}: rel errs {errs}, equal {equal}  kernel {row['ms']:.4f} ms "
+                f"({row['ms_source']}, {100 * row['bound_share']:.1f}% of the bound)  per call {row['call_ms']:.4f} ms"
+                f"  plain {row['plain_ms']:.4f} ms"
+                + (f"  autograd's chain {row['autograd_chain_ms']:.4f} ms" if passes == 3 else "")
+                + f"  bound {bound:.4f} ms ({by})")
+        del z, g, a, dz, again, a_ref, dz_ref, u
+    return rows
+
+
 def check_grid_frames(torch, he, fm, dev):
     """What ``evaluate_grid(model, (352, 352), frame_idx=t)`` launches for
     one frame of the multi-frame paths, forward only, against the plain
@@ -1391,9 +1457,9 @@ def frames_of(img):
 
 
 def counters():
-    from mri_interpolation_tpu_torch.ops import fused_mlp, hash_encode, probe
+    from mri_interpolation_tpu_torch.ops import fused_mlp, hash_encode, probe, sine_layer
 
-    return (hash_encode, fused_mlp, probe)
+    return (hash_encode, fused_mlp, sine_layer, probe)
 
 
 def reset_counts() -> None:
@@ -1602,7 +1668,8 @@ def drive_held_out_paths(path: str, tmp: str, zero: dict, paths: dict) -> None:
     paths["psf_siren"] = out = drive_path(
         "psf_siren", "launcher.main, PSF SIREN 256x5 (5^3 points: 512,000-row forwards)",
         lambda: cli(launcher, [*PSF_FLAGS, "--output_root", os.path.join(tmp, "psf"), *grid]),
-        n // 4096, 4096, {**zero, "probe": 1})
+        n // 4096, 4096, {**zero, "sine_layer_forward": 5 * (n // 4096 + CHUNKS),
+                          "sine_layer_backward": 5 * (n // 4096), "probe": 1})
     want = [0.5 / (s - 1) for s in VOLUME]
     if out.get("coordinates_spacing") != want:
         fail(f"psf_siren: spacing {out.get('coordinates_spacing')}, expected {want}")
@@ -3392,6 +3459,7 @@ def main() -> int:
     from mri_interpolation_tpu_torch.ops import fused_mlp as fm
     from mri_interpolation_tpu_torch.ops import hash_encode as he
     from mri_interpolation_tpu_torch.ops import probe as pr
+    from mri_interpolation_tpu_torch.ops import sine_layer as sl
     from mri_interpolation_tpu_torch.train import TrainConfig
 
     torch.backends.cuda.matmul.allow_tf32 = False  # full fp32 GEMMs, as the CPU reference
@@ -3449,6 +3517,7 @@ def main() -> int:
     for name, krows in warp_rows.items():
         rows[name].extend(krows)
     rows.update(check_fused_mlp(torch, fm, dev))
+    rows.update(check_sine_layer(torch, sl, dev))
     for name, krows in check_grid_frames(torch, he, fm, dev).items():
         rows[name].extend(krows)
     rows["probe"] = [probe_row]

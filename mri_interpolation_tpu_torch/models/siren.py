@@ -24,7 +24,10 @@ The variants, in plain tensor code (the JAX package fuses only
 - ``make_hash_siren`` (``HashSirenNet``): the same with the modulator fed a
   hash encoding of the coordinates (``HashGridEncoder``: the hash-encode
   kernel pair on the card); tree as above plus ``"encoder": {"table"}``;
-- ``make_psf_siren`` (``PsfSirenNet``): the unfused SIREN forward, trained
+- ``make_psf_siren`` (``PsfSirenNet``): the SIREN forward layer by layer
+  (:func:`_sine_layers_forward`: each product by cuBLAS, each sine layer's
+  bias, w0 scale and sine as one ``ops.sine_layer.SineLayer``, the
+  sine-layer kernel pair on the card), trained
   through ``Model.loss`` on the slice-profile objective: each coordinate
   expands to its ``n_sample^d`` PSF offsets (:func:`psf_offsets_and_weights`),
   whose predictions a normalised Gaussian integrates back to one voxel; the
@@ -44,6 +47,7 @@ from torch import nn
 
 from ..device import DeviceLike, resolve_device
 from ..ops.fused_mlp import fused_siren_apply
+from ..ops.sine_layer import SineLayer
 from ..tracing import span
 from .core import Dense, Model, uniform_init
 
@@ -87,6 +91,15 @@ def _siren_forward(params, x: torch.Tensor, n_layers: int, w0: float, w0_initial
     for i in range(n_layers):
         x = siren_layer_apply(params["layers"][i], x, w0_initial if i == 0 else w0)
     return siren_layer_apply(params["last"], x, w0, sine=False)
+
+
+def _sine_layers_forward(params, x: torch.Tensor, n_layers: int, w0: float, w0_initial: float) -> torch.Tensor:
+    """:func:`_siren_forward`'s function with each sine layer's bias, w0
+    scale and sine in one :class:`SineLayer` after its product."""
+    for i in range(n_layers):
+        layer = params["layers"][i]
+        x = SineLayer.apply(x @ layer["w"], layer["b"], w0_initial if i == 0 else w0)
+    return x @ params["last"]["w"] + params["last"]["b"]
 
 
 class Siren(Model):
@@ -222,7 +235,8 @@ def psf_offsets_and_weights(coordinates_spacing: Sequence[float], n_sample: int 
 
 class PsfSiren(Siren):
     """SIREN with the PSF slice-profile objective as its ``loss``; the
-    forward (inference) is the plain unfused SIREN."""
+    forward is the SIREN layer by layer, cuBLAS's products and one
+    :class:`SineLayer` a sine layer (:func:`_sine_layers_forward`)."""
 
     name = "psf_siren"
 
@@ -236,7 +250,7 @@ class PsfSiren(Siren):
         self.loss = self.psf_loss
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return _siren_forward(self.params, x, self.n_layers, self.w0, self.w0_initial)
+        return _sine_layers_forward(self.params, x, self.n_layers, self.w0, self.w0_initial)
 
     def psf_loss(self, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
         """MSE of the PSF-integrated prediction: every voxel centre expands

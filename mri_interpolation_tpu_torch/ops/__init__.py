@@ -7,6 +7,9 @@
 - fused_mlp: the fused MLP stack's forward and backward (replaces the Pallas
   ``_forward_kernel`` / ``_backward_kernel`` of
   ``mri_interpolation_tpu/ops/pallas/fused_mlp.py``);
+- sine_layer: one SIREN sine layer's bias, w0 scale and sine after its
+  cuBLAS product, forward and backward (replaces no Pallas kernel: the JAX
+  package leaves the chain to XLA; the PSF SIREN's forward);
 - probe: y = 2 * x, the build check (replaces the Pallas probe ``trivial`` of
   ``scripts/bench_pallas_exec.py``);
 - hash_mlp_grid: one chunk of a hash-MLP's dense grid as one op call,
@@ -14,8 +17,9 @@
   then kernel 5 (``infer/grid.py``'s ``fused_grid`` route).
 
 Sources live in ``csrc/`` and are built by ``build.py`` at first use.
-Kernels 1-6 are reached through the dispatcher ops ``torch.ops.mri_torch.*``
-(``library.py``, registered when this package is imported): a CUDA impl
+Kernels 1-6 and the sine-layer pair are reached through the dispatcher
+ops ``torch.ops.mri_torch.*`` (``library.py``, registered when this
+package is imported): a CUDA impl
 that launches the kernel, a CPU impl that runs the plain version, and a
 fake impl for tracing.
 """

@@ -31,7 +31,7 @@ __all__ = ["SOURCES", "BUILD_DIR", "NVCC_FLAGS", "H100_SMS", "find_nvcc", "compi
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-SOURCES = {name: _CSRC / f"{name}.cu" for name in ("hash_encode", "fused_mlp", "probe")}
+SOURCES = {name: _CSRC / f"{name}.cu" for name in ("hash_encode", "fused_mlp", "sine_layer", "probe")}
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -23,6 +23,7 @@ from benchmark import reference, roofline_psf, run, spec, trace
 from benchmark.common import Outcome
 from benchmark.entries import fit_psf
 from mri_interpolation_tpu_torch.models import siren as port_siren
+from mri_interpolation_tpu_torch.ops.sine_layer import SineLayer
 from mri_interpolation_tpu_torch.train import trainer as port_trainer
 
 CELL = "psf_siren.fit"
@@ -52,13 +53,17 @@ def _drive(monkeypatch, capsys, seed=2147483659):
 
 
 def _tf32_products(monkeypatch):
-    """Every SIREN layer of the program takes its operands rounded to TF32."""
+    """Every SIREN layer of the program takes its operands rounded to TF32:
+    the PSF SIREN's forward with each product in TF32, its sine layers
+    still through the program's ``SineLayer``."""
 
-    def apply(params, x, w0, sine=True):
-        z = reference.matmul(x, params["w"], "tf32") + params["b"]
-        return torch.sin(w0 * z) if sine else z
+    def forward(params, x, n_layers, w0, w0_initial):
+        for i in range(n_layers):
+            layer = params["layers"][i]
+            x = SineLayer.apply(reference.matmul(x, layer["w"], "tf32"), layer["b"], w0_initial if i == 0 else w0)
+        return reference.matmul(x, params["last"]["w"], "tf32") + params["last"]["b"]
 
-    monkeypatch.setattr(port_siren, "siren_layer_apply", apply)
+    monkeypatch.setattr(port_siren, "_sine_layers_forward", forward)
 
 
 def _psf_points(kind):

@@ -249,7 +249,8 @@ def test_geometry_key_rebuilds_the_geometry(name):
 
 
 OPS = ("hash_encode_forward", "hash_encode_table_grad", "hash_encode_coarse_forward",
-       "hash_encode_coarse_table_grad", "fused_mlp_forward", "fused_mlp_backward", "hash_mlp_grid_forward")
+       "hash_encode_coarse_table_grad", "fused_mlp_forward", "fused_mlp_backward", "hash_mlp_grid_forward",
+       "sine_layer_forward", "sine_layer_backward")
 
 
 def _op_args(name):
@@ -280,6 +281,8 @@ def _op_args(name):
         # rows 32-47 of a (5, 9) grid over [-1, 1], the last three past its last voxel, through relu 6-16-1
         "hash_mlp_grid_forward": (table, grid_params, list(fm.act_words(fm.mlp_acts(1, "relu"))), key, [5, 9], -1.0,
                                   1.0, 32, torch.zeros((16, 6)), torch.zeros((48, 1))),
+        "sine_layer_forward": (mg.new_empty((40, 16)).uniform_(-0.2, 0.2), bs[0], 30.0),
+        "sine_layer_backward": (g[:40, :4].contiguous(), mx[:, :2].repeat(1, 2).contiguous(), bs[1][:4], 25.0),
     }[name]
     return getattr(torch.ops.mri_torch, name).default, args
 

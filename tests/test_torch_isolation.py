@@ -28,6 +28,7 @@ from mri_interpolation_tpu_torch.ops import build
 from mri_interpolation_tpu_torch.ops import fused_mlp as fm
 from mri_interpolation_tpu_torch.ops import hash_encode as he
 from mri_interpolation_tpu_torch.ops import probe as pr
+from mri_interpolation_tpu_torch.ops import sine_layer as sl
 from mri_interpolation_tpu_torch.train import TrainConfig, Trainer
 
 REPO = Path(__file__).resolve().parents[1]
@@ -216,13 +217,14 @@ def test_forward_kernel_paths_raise_instead_of_falling_back(monkeypatch):
                            finest_resolution=None, per_level_scale=1.4)
     he.reset_launches()
     fm.reset_launches()
+    sl.reset_launches()
     with pytest.raises(RuntimeError, match="nvcc not found"):
         he._launch("hash_encode_forward", torch.zeros((5, 2)), enc.init(), torch.empty((5, 20)), enc)
     ws, bs, x = [torch.zeros((20, 64)), torch.zeros((64, 1))], [torch.zeros(64), torch.zeros(1)], torch.zeros((5, 20))
     for acts in (fm.mlp_acts(1, "relu"), fm.siren_acts(1, 30.0, 30.0)):
         with pytest.raises(RuntimeError, match="nvcc not found"):
             fm._forward_kernel(ws, bs, x, acts)
-    assert set(he.LAUNCHES.values()) == {0} and set(fm.LAUNCHES.values()) == {0}
+    assert not any((*he.LAUNCHES.values(), *fm.LAUNCHES.values(), *sl.LAUNCHES.values()))
 
 
 def test_grid_chunk_op_kernel_path_raises_instead_of_falling_back(monkeypatch):
@@ -240,6 +242,7 @@ def test_grid_chunk_op_kernel_path_raises_instead_of_falling_back(monkeypatch):
     acts, key = list(fm.act_words(fm.mlp_acts(1, "relu"))), list(enc.geometry_key())
     he.reset_launches()
     fm.reset_launches()
+    sl.reset_launches()
     with pytest.raises(RuntimeError, match="nvcc not found"):
         hg._forward_cuda(enc.init(), params, acts, key, [3, 4, 5], 0.0, 1.0, 0, torch.empty((16, 4)),
                          torch.empty((64, 1)))
@@ -249,7 +252,7 @@ def test_grid_chunk_op_kernel_path_raises_instead_of_falling_back(monkeypatch):
     with pytest.raises(ValueError, match="scratch has shape"):
         hg._forward_cuda(enc.init(), params, acts, key, [3, 4, 5], 0.0, 1.0, 0, torch.empty((16, 5)),
                          torch.empty((64, 1)))
-    assert set(he.LAUNCHES.values()) == {0} and set(fm.LAUNCHES.values()) == {0}
+    assert not any((*he.LAUNCHES.values(), *fm.LAUNCHES.values(), *sl.LAUNCHES.values()))
 
 
 MULTI = dict(dim_in=2, n_frames=2)
@@ -276,9 +279,10 @@ def test_slice_three_entry_points_raise_without_a_card(no_card, tmp_path):
     # the CPU, when asked for, works, and launches nothing
     he.reset_launches()
     fm.reset_launches()
+    sl.reset_launches()
     Trainer(TrainConfig(epochs=1)).fit_frames(model, coords, values, device="cpu")
     assert evaluate_grid(model, (4, 4), frame_idx=1, device="cpu").shape == (4, 4)
-    assert set(he.LAUNCHES.values()) == {0} and set(fm.LAUNCHES.values()) == {0}
+    assert not any((*he.LAUNCHES.values(), *fm.LAUNCHES.values(), *sl.LAUNCHES.values()))
 
 
 def test_slice_seven_entry_points_raise_without_a_card(no_card, tmp_path):
@@ -314,11 +318,12 @@ def test_slice_seven_entry_points_raise_without_a_card(no_card, tmp_path):
     # the CPU, when asked for, works, and launches nothing
     he.reset_launches()
     fm.reset_launches()
+    sl.reset_launches()
     res = Trainer(cfg, freeze_mask_fn=freeze).fit(model, coords, values, device="cpu")
     assert res.steps == 8 and int(model.anneal_step) == 8 and sorted(os.listdir(tmp_path / "ck")) == [
         "step_4.pt", "step_8.pt"]
     assert predict_batched(model, coords, device="cpu").shape == (64, 1)
-    assert set(he.LAUNCHES.values()) == {0} and set(fm.LAUNCHES.values()) == {0}
+    assert not any((*he.LAUNCHES.values(), *fm.LAUNCHES.values(), *sl.LAUNCHES.values()))
 
 
 def test_slice_eight_entry_points_raise_without_a_card(no_card, tmp_path):
@@ -355,6 +360,7 @@ def test_slice_eight_entry_points_raise_without_a_card(no_card, tmp_path):
     # the CPU, when asked for, works, and launches nothing
     he.reset_launches()
     fm.reset_launches()
+    sl.reset_launches()
     path = str(tmp_path / "vol.nii.gz")
     nifti.save(synthetic_volume((8, 8, 4), seed=0), path)
     cfg = RunConfig(image_path=path, output_root=str(tmp_path / "runs"), even_frames_only=True, undersample_pct=50.0,
@@ -363,7 +369,12 @@ def test_slice_eight_entry_points_raise_without_a_card(no_card, tmp_path):
     assert np.isfinite(launcher.run(cfg, device="cpu")["odd_psnr"])
     siren = make_hash_siren(3, device="cpu", **siren_kw, **hash_kw)
     assert evaluate_grid(siren, (4, 4, 4), lo=-1.0, device="cpu", transport="u16").shape == (4, 4, 4)
-    assert set(he.LAUNCHES.values()) == {0} and set(fm.LAUNCHES.values()) == {0}
+    psf = make_psf_siren(3, coordinates_spacing=(0.1, 0.1, 0.1), n_sample=3, device="cpu", **siren_kw)
+    coords = np.random.default_rng(0).uniform(-1, 1, (32, 3)).astype(np.float32)
+    assert np.all(np.isfinite(Trainer(TrainConfig(batch_size=16, epochs=1)).fit(psf, coords, coords[:, :1],
+                                                                                   device="cpu").losses))
+    assert evaluate_grid(psf, (4, 4, 4), lo=-1.0, device="cpu").shape == (4, 4, 4)
+    assert not any((*he.LAUNCHES.values(), *fm.LAUNCHES.values(), *sl.LAUNCHES.values()))
 
 
 def test_slice_nine_entry_points_raise_without_a_card(no_card, tmp_path):
@@ -396,11 +407,12 @@ def test_slice_nine_entry_points_raise_without_a_card(no_card, tmp_path):
     # the CPU, when asked for, works, and launches nothing
     he.reset_launches()
     fm.reset_launches()
+    sl.reset_launches()
     got = protocols.ensembled_warp_fit_eval(lambda seed: make_warp_inr(3, device="cpu", seed=seed, **warp_kw), image,
                                             TrainConfig(batch_size=16), seeds=(1,), linear_blend=0.5, device="cpu")
     assert len(got["per_seed_odd_psnr"]) == 1 and np.isfinite(got["odd"]["psnr"])
     assert classical.main([path, "--out", str(tmp_path / "out.nii.gz"), "--device", "cpu"]).shape == (4, 4, 4)
-    assert set(he.LAUNCHES.values()) == {0} and set(fm.LAUNCHES.values()) == {0}
+    assert not any((*he.LAUNCHES.values(), *fm.LAUNCHES.values(), *sl.LAUNCHES.values()))
 
 
 def test_slice_ten_entry_points_raise_without_a_card(no_card, tmp_path):
@@ -467,6 +479,7 @@ def test_slice_eleven_entry_points_raise_without_a_card(no_card, tmp_path):
     # the CPU, when asked for, works, and launches nothing
     he.reset_launches()
     fm.reset_launches()
+    sl.reset_launches()
     res = Trainer(TrainConfig(batch_size=16, epochs=1)).fit_streaming(model, volume, shard_voxels=32, device="cpu")
     assert res.steps == 4
     summary = launcher.run(RunConfig(image_path=path, output_root=str(tmp_path / "runs"), stream_shard_voxels=32,
@@ -475,7 +488,7 @@ def test_slice_eleven_entry_points_raise_without_a_card(no_card, tmp_path):
     assert set(figures.make_figures(summary["run_dir"])) == {"grid", "gif", "convergence"}
     jsonl = os.path.join(summary["run_dir"], "scalars.jsonl")
     assert len(list(tb_events.read_event_file(tb_events.export_scalars_jsonl(jsonl, str(tmp_path / "tb"))))) == 5
-    assert set(he.LAUNCHES.values()) == {0} and set(fm.LAUNCHES.values()) == {0}
+    assert not any((*he.LAUNCHES.values(), *fm.LAUNCHES.values(), *sl.LAUNCHES.values()))
 
 
 def test_slice_thirteen_entry_points_raise_without_a_card(no_card, tmp_path, monkeypatch):
@@ -505,13 +518,14 @@ def test_slice_thirteen_entry_points_raise_without_a_card(no_card, tmp_path, mon
             launcher.run(RunConfig(image_path=path, output_root=str(tmp_path / "runs"), **{flag: True}))
     he.reset_launches()
     fm.reset_launches()
+    sl.reset_launches()
     res = DataParallelTrainer(TrainConfig(batch_size=16), mesh=mesh).fit(
         model, np.zeros((64, 3), np.float32), np.zeros((64, 1), np.float32))
     assert res.steps == 4
     summary = launcher.run(RunConfig(image_path=path, output_root=str(tmp_path / "runs"), batch_size=16,
                                      interp_shapes=(), shard_tables=True, data_parallel=True, **TINY), device="cpu")
     assert summary["steps"] == 4 and summary["world_size"] == 1
-    assert set(he.LAUNCHES.values()) == {0} and set(fm.LAUNCHES.values()) == {0}
+    assert not any((*he.LAUNCHES.values(), *fm.LAUNCHES.values(), *sl.LAUNCHES.values()))
 
 
 def test_slice_fifteen_entry_points_raise_without_a_card(no_card, tmp_path, monkeypatch):

@@ -781,12 +781,14 @@ def test_encode_forward_unaligned_table(f, cuda_device):
 # the dispatcher ops (ops/library.py) and a served artifact, on the card
 
 OPS = ("hash_encode_forward", "hash_encode_table_grad", "hash_encode_coarse_forward",
-       "hash_encode_coarse_table_grad", "fused_mlp_forward", "fused_mlp_backward", "hash_mlp_grid_forward")
+       "hash_encode_coarse_table_grad", "fused_mlp_forward", "fused_mlp_backward", "hash_mlp_grid_forward",
+       "sine_layer_forward", "sine_layer_backward")
 
 
 def _op_args(name, device):
     """The op ``name`` and its arguments at small sizes on ``device``: the d2
-    geometry (every level coarse) at 300 points, the siren_w0s stack; for
+    geometry (every level coarse) at 300 points, the siren_w0s stack (its
+    first bias for the sine layer, on N(0, 1) rows of width 48); for
     the grid chunk, a relu 6-16-1 decoder on the d2 encoder and rows 96-159
     of a (7, 13) grid over [-1, 1]."""
     enc, x, table, g = _inputs(CONFIGS["d2"], 300, device)
@@ -807,6 +809,9 @@ def _op_args(name, device):
         "fused_mlp_backward": (mx, mg, params, words, True),
         "hash_mlp_grid_forward": (table, grid_params, list(fm.act_words(gacts)), key, [7, 13], -1.0, 1.0, 64, scratch,
                                   torch.zeros((192, 1), device=device)),
+        "sine_layer_forward": (torch.randn((300, 48), device=device), bs[0], 30.0),
+        "sine_layer_backward": (torch.randn((300, 48), device=device), torch.randn((300, 48), device=device), bs[0],
+                                25.0),
     }[name]
     return getattr(torch.ops.mri_torch, name).default, args
 
