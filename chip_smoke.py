@@ -59,7 +59,11 @@ Phases, each printed with its time as it ends:
    accumulation, and the modulated, hash and PSF SIRENs; then the rest of
    the zoo: BaseMLP, RffNet, the real GaborNet, FreqMLP (siren encoder
    with a skip, and rff) and the warp INR (residual, warp_accel,
-   warp_smooth, a level anneal); then the registrations at their default
+   warp_smooth, a level anneal); WIRE at its published widths (the
+   complex GaborNet 3 -> 181 x 3 -> complex Linear, ``check_wire``): 3
+   full-batch steps of ``Trainer.fit`` on 65,536 grid rows, each against
+   ``benchmark/reference_wire`` from the state the fit reached, and
+   ``GABOR_ROWS``; then the registrations at their default
    stages on the card and on the CPU (``register_pair`` on a (352, 352)
    pair and a (64, 64, 6) pair, ``register_group_temporal`` on 4 (352, 352)
    frames; a smooth frame under smooth displacements): the step-0 gradient,
@@ -258,6 +262,7 @@ import sys
 import tempfile
 import time
 import types
+from pathlib import Path
 
 import numpy as np
 
@@ -1399,6 +1404,56 @@ def small_zoo_fits(torch) -> dict:
         "warp_inr": small_fit_matches_cpu(torch, "warp_inr", lambda d: make_warp_inr(3, device=d, **warp),
                                           TrainConfig(**base, lr=1e-2, optimizer="adam_tcnn")),
     }
+
+
+WIRE_ROWS = 65_536  # the wire path's full batch: rows of the (352, 352, 15) grid on [-1, 1]
+WIRE_RTOL = {"loss_gap": 2e-6, "grad_gap": 1e-4, "change_gap": 1e-5}  # tests/test_torch_wire_gpu.py's, and why
+
+
+def check_wire(torch) -> dict:
+    """WIRE at its published widths (``benchmark/configs/wire.json``: 3 ->
+    181 complex x 3 Gabor layers -> complex Linear, w0 20, s0 10) through the
+    factory and ``Trainer.fit``: 3 full-batch steps on WIRE_ROWS grid rows
+    from the seed's weights on the card, each held to
+    ``benchmark/reference_wire`` (real arithmetic, every complex leaf as its
+    two real parts) from the state the fit reached, as the cell
+    ``wire.fit`` judges it (``step_gaps``), and ``GABOR_ROWS`` = 3 layers x
+    3 steps x the rows. Returns the gaps."""
+    from benchmark import data, reference_wire
+    from benchmark.common import strict_fp32
+    from benchmark.entries.fit_wire import _StepCapture
+    from benchmark.models import wire
+    from mri_interpolation_tpu_torch.models import gabor
+    from mri_interpolation_tpu_torch.train import TrainConfig, Trainer
+
+    config = json.loads((Path(reference_wire.__file__).resolve().parent / "configs" / "wire.json").read_text())
+    dev, seed = torch.device("cuda"), 3_000_000_097
+    with strict_fp32():
+        model = wire.build(config, dev)
+        model.load_state_dict(reference_wire.port_state(reference_wire.init_params(config, seed, dev)))
+        vol = data.make_volume(config["volume"], seed, dev)
+        coords = data.training_set(vol)[0]
+        rows = torch.randperm(len(coords), generator=torch.Generator(device=dev).manual_seed(seed),
+                              device=dev)[:WIRE_ROWS]
+        capture = _StepCapture(model, 3)
+        gabor.reset_gabor_rows()
+        t0 = time.perf_counter()
+        try:
+            result = Trainer(TrainConfig(batch_size=WIRE_ROWS, epochs=3, lr=config["train"]["lr"], seed=seed)).fit(
+                model, (coords[rows] * 2.0 - 1.0).cpu().numpy(), data.targets(vol, coords[rows]).cpu().numpy(),
+                device=dev)
+        finally:
+            capture.close()
+        fit_s = time.perf_counter() - t0
+        losses = [float(v) for v in result.losses]
+        gaps = reference_wire.step_gaps(config, capture.reading(losses),
+                                        [(x, data.targets(vol, (x + 1.0) * 0.5)) for x in capture.xs], block=16_384)
+    counted = gabor.GABOR_ROWS["gabor_complex"]
+    log(f"[wire] WIRE 181 x 3, {WIRE_ROWS:,d} rows full batch, 3 steps of Trainer.fit in {fit_s:.2f} s: losses "
+        f"{losses}; against the reference step by step {gaps}; GABOR_ROWS {counted}")
+    if any(not gaps[k] <= tol for k, tol in WIRE_RTOL.items()) or counted != 3 * 3 * WIRE_ROWS:
+        fail(f"wire: {gaps} (tolerances {WIRE_RTOL}), GABOR_ROWS {counted}")
+    return gaps
 
 
 def small_fit_frames_match_cpu(torch) -> dict:
@@ -3529,6 +3584,7 @@ def main() -> int:
     rels.update(small_option_fits(torch))
     rels.update(small_fit_frames_match_cpu(torch))
     rels.update(small_zoo_fits(torch))
+    check_wire(torch)
     rels.update({f"fit_streaming {k}": v for k, v in check_streaming_card_vs_cpu(torch).items()})
     log(f"[small fit] 10 steps each, card vs CPU loss curves, max rel diff (rtol {FIT_RTOL}): "
         + ", ".join(f"{k} {v:.3e}" for k, v in rels.items()) + f" in {time.perf_counter() - t0:.1f} s")

@@ -14,8 +14,20 @@ Port of ``mri_interpolation_tpu/models/gabor.py``. ``make_gabor_net``
   layers are complex is a Python attribute (the JAX tree's ``"complex"``
   bool leaf, which ``convert.params_from_jax`` skips).
 
-``Trainer.fit`` refuses complex parameters (ROADMAP.md, section 3): the
-JAX trainer cannot fit this kind either. Plain tensor code.
+``outermost_linear=True`` (complex kind only) is WIRE's own form
+(Saragadam et al., CVPR 2023, arXiv:2301.05187): the last of the
+``n_layers`` layers is a plain complex ``Dense`` to dim_out (``last``,
+torch's cfloat init) in place of a Gabor layer, and the value is the real
+part of its output. WIRE's image INR is ``n_layers=4`` (three Gabor layers,
+then the Linear) at dim_hidden ``int(256 / sqrt(2))`` = 181, w0 20, sigma
+10. The parameters are drawn as without it, in the same order.
+
+``Trainer.fit`` trains the complex parameters (torch's Adam over their
+real views; the gradient of the real loss is dL/dRe + i dL/dIm), held to
+``benchmark/reference_wire.py``, a real-arithmetic reference; the JAX
+trainer cannot fit this kind. Each complex Gabor layer's activation runs
+inside the span ``mri.model.gabor`` and adds its rows to
+:data:`GABOR_ROWS`. Plain tensor code.
 """
 
 from __future__ import annotations
@@ -27,9 +39,17 @@ import torch
 from torch import nn
 
 from ..device import DeviceLike, resolve_device
+from ..tracing import span
 from .core import Dense, Model, dense_init, uniform_init
 
-__all__ = ["GaborNet", "make_gabor_net"]
+__all__ = ["GaborNet", "make_gabor_net", "GABOR_ROWS", "reset_gabor_rows"]
+
+GABOR_ROWS = {"gabor_complex": 0}  # rows x layers that complex Gabor activations took
+
+
+def reset_gabor_rows() -> None:
+    for name in GABOR_ROWS:
+        GABOR_ROWS[name] = 0
 
 
 class RealGaborLayer(nn.Module):
@@ -50,7 +70,9 @@ class ComplexGaborLayer(nn.Module):
 
     def forward(self, z: torch.Tensor, w0: float, sigma: float) -> torch.Tensor:
         lin = self.lin(z)
-        return torch.exp(1j * w0 * lin - torch.abs(sigma * lin) ** 2)
+        GABOR_ROWS["gabor_complex"] += lin.numel() // lin.shape[-1]
+        with span("mri.model.gabor"):
+            return torch.exp(1j * w0 * lin - torch.abs(sigma * lin) ** 2)
 
 
 def _complex_dense_init(dim_in: int, dim_out: int, generator: Optional[torch.Generator]):
@@ -63,16 +85,19 @@ def _complex_dense_init(dim_in: int, dim_out: int, generator: Optional[torch.Gen
 
 class GaborNet(Model):
     def __init__(self, dim_in: int, dim_hidden: int, dim_out: int, n_layers: int, w0: float, sigma: float,
-                 kind: str, init_scheme: str, generator: Optional[torch.Generator] = None):
+                 kind: str, init_scheme: str, generator: Optional[torch.Generator] = None,
+                 outermost_linear: bool = False):
         super().__init__(dim_in, dim_out)
         if kind not in ("real", "complex"):
             raise ValueError(f"unknown gabor kind {kind!r}")
+        if outermost_linear and (kind != "complex" or n_layers < 2):
+            raise ValueError("outermost_linear is WIRE's form: kind='complex' and n_layers >= 2")
         self.name = f"gabor_{kind}"
         self.w0, self.sigma = w0, sigma
         self.complex = kind == "complex"
         dims = [dim_in] + [dim_hidden] * (n_layers - 1) + [dim_out]
         layers = []
-        for i in range(n_layers):
+        for i in range(n_layers - int(outermost_linear)):
             if self.complex:
                 lin = (dense_init(dims[i], dims[i + 1], generator) if i == 0
                        else _complex_dense_init(dims[i], dims[i + 1], generator))
@@ -91,10 +116,13 @@ class GaborNet(Model):
             else:
                 raise ValueError(f"unknown init_scheme {init_scheme!r}")
         self.layers = nn.ModuleList(layers)
+        self.last = Dense(_complex_dense_init(dims[-2], dims[-1], generator)) if outermost_linear else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         for layer in self.layers:
             x = layer(x, self.w0, self.sigma)
+        if self.last is not None:
+            x = self.last(x)
         return torch.real(x) if self.complex else x
 
 
@@ -110,12 +138,14 @@ def make_gabor_net(
     init_scheme: str = "auto",
     seed: int = 0,
     device: DeviceLike = None,
+    outermost_linear: bool = False,
 ) -> GaborNet:
     """GaborNet with the JAX factory's defaults (``sigma`` is the Gabor scale
     c); parameters drawn on the CPU from ``torch.Generator().manual_seed(seed)``
-    and moved to ``device`` (``cuda`` unless ``"cpu"``)."""
+    and moved to ``device`` (``cuda`` unless ``"cpu"``). ``outermost_linear``:
+    WIRE's complex Linear last (see the module's docstring)."""
     dev = resolve_device(device)
     model = GaborNet(dim_in, dim_hidden, dim_out, n_layers, w0, sigma, kind, init_scheme,
-                     torch.Generator().manual_seed(seed))
+                     torch.Generator().manual_seed(seed), outermost_linear)
     model.hparams = {"lr": lr, "w0": w0, "sigma": sigma}
     return model.to(dev)

@@ -45,10 +45,19 @@ from ..infer.grid import _check_model_on, _volume, _walk
 from ..models.core import Model
 from ..ops.hash_mlp_grid import chunk_index, flat_index_to_coords
 from ..train.losses import get_loss
-from ..train.trainer import TrainConfig, Trainer, TrainResult, _Ranks, _refuse_complex, _step_loss, _Updates
+from ..train.trainer import TrainConfig, Trainer, TrainResult, _Ranks, _step_loss, _Updates
 from .mesh import RankGroup, all_gather, make_mesh, mean_over_ranks
 
 __all__ = ["DataParallelTrainer", "fit_multi_volume", "evaluate_grid_sharded"]
+
+
+def _refuse_complex(model: Model) -> None:
+    """The ranks' mean (one flat buffer of the gradients, buffers and loss)
+    and the gathered state vector are real float32: a model with complex
+    parameters (the complex GaborNet) fits in one process only."""
+    if any(p.is_complex() for p in model.parameters()):
+        raise NotImplementedError("complex parameters fit in one process only (Trainer.fit): the data-parallel "
+                                  "mean and state vector hold real float32 tensors")
 
 
 def _global_batch(batch_size: int, n: int, world: int) -> int:
@@ -100,6 +109,7 @@ class DataParallelTrainer:
         """``Trainer`` on the global batch (every epoch shuffled, the last
         partial batch dropped) and this rank's part, the model on its device."""
         cfg, mesh = self.config, self.mesh
+        _refuse_complex(model)
         batch = _global_batch(cfg.batch_size, n, mesh.world_size)
         model.to(mesh.device)  # _StepMean holds the buffers where the fit leaves them
         ranks = _Ranks(mesh.world_size, mesh.rank, _StepMean(mesh, model))

@@ -28,6 +28,9 @@ launches, syncs).
   centres into their B*K offset points (``PsfSiren.psf_loss``);
 - ``mri.model.psf_integrate``: its Gaussian weighted sum of the K
   predictions of each voxel and the MSE against the targets;
+- ``mri.model.gabor``: a complex Gabor layer's activation, ``exp(i w0 z -
+  |sigma z|^2)`` of its product ``z`` (``models.gabor``: the complex
+  GaborNet and WIRE), once a layer and forward;
 - ``mri.grid.request``: one ``evaluate_grid`` call;
 - ``mri.grid.encode``: the separable route's ``apply_grid`` of the whole grid;
 - ``mri.grid.chunk``: one writer call of the chunk walk (``infer.grid._walk``,
@@ -65,6 +68,7 @@ SPANS = (
     "mri.train.hooks",
     "mri.model.psf_expand",
     "mri.model.psf_integrate",
+    "mri.model.gabor",
     "mri.grid.request",
     "mri.grid.encode",
     "mri.grid.chunk",

@@ -22,9 +22,19 @@ reaches only 1/k of its decay, as in the JAX package. Other semantics kept:
 by wrapping around to the permutation's start; ``shuffle=False`` walks the
 data in order; ``optimizer="adam_tcnn"`` is tcnn's Adam (b2 0.99, eps
 1e-15); a model with a ``loss(x, y)`` method is trained on it in place of
-``loss_fn(model(x), y)``; a model with complex parameters is refused
-(``NotImplementedError``); ``remat`` recomputes the forward in the backward
+``loss_fn(model(x), y)``; ``remat`` recomputes the forward in the backward
 (``torch.utils.checkpoint``), value-identical to the plain step.
+
+Complex parameters (the complex GaborNet, WIRE) are trained as pairs of
+real numbers: torch's ``.grad`` of the real loss in ``z = p + i q`` is
+dL/dp + i dL/dq, and torch's Adam steps over ``view_as_real`` of the
+parameters, gradients and moments, so a complex leaf takes exactly the
+update its real and imaginary parts would take as two real leaves. The
+schedule, the freeze mask, the accumulation window and the checkpoint's
+optimizer state hold complex leaves as they hold real ones; the loss is
+real. A real model's step is unchanged. The JAX trainer cannot fit this
+kind; ``benchmark/reference_wire.py`` is the reference such a fit is held
+to.
 
 ``fit_frames`` fits the multi-frame models: one step per whole frame, the
 frames in order every epoch, the model called as ``model(x, frame_idx=t)``.
@@ -432,13 +442,6 @@ def _take_step(model: Model, loss_fn: Callable, updates: "_Updates", x: torch.Te
     return loss
 
 
-def _refuse_complex(model: Model) -> None:
-    if any(p.is_complex() for p in model.parameters()):
-        raise NotImplementedError(
-            "complex parameters (the complex GaborNet) are not trainable: the JAX trainer cannot fit them "
-            "either, so no reference holds such a fit (ROADMAP.md, section 3)")
-
-
 def _model_loss(model: Model, loss: str) -> Callable[[torch.Tensor, torch.Tensor], torch.Tensor]:
     """``model.loss(x, y)`` where the model has that hook, else the named
     loss of ``model(x)`` against ``y``."""
@@ -490,7 +493,6 @@ class Trainer:
     def _fit(self, model: Model, coords: np.ndarray, values: np.ndarray, dev: torch.device,
              eval_fn: Optional[Callable], ranks: _Ranks) -> TrainResult:
         cfg = self.config
-        _refuse_complex(model)
         n = len(coords)
         batch = min(cfg.batch_size, n)
         steps_per_epoch = n // batch if cfg.drop_last else -(-n // batch)
@@ -561,7 +563,6 @@ class Trainer:
     def _fit_streaming(self, model: Model, volume, shard_voxels: int, lo: float, hi: float, value_range,
                        dev: torch.device, eval_fn: Optional[Callable], ranks: _Ranks) -> TrainResult:
         cfg = self.config
-        _refuse_complex(model)
         shape = tuple(int(s) for s in volume.shape)
         n = int(np.prod(shape))
         if n >= 2**31:

@@ -52,6 +52,7 @@ from mri_interpolation_tpu_torch.convert import params_from_jax
 from mri_interpolation_tpu_torch.encodings import FrequencyEncoding, GaussianFourierEncoding
 from mri_interpolation_tpu_torch.io import dataset_from_array, nifti, synthetic_volume
 from mri_interpolation_tpu_torch.models import REGISTRY, core, make_freq_mlp, make_gabor_net, make_mlp, make_rff_net
+from mri_interpolation_tpu_torch.models import gabor as port_gabor
 from mri_interpolation_tpu_torch.train import TrainConfig, Trainer, save_checkpoint
 
 SHAPE = (16, 16, 8)
@@ -204,14 +205,19 @@ def test_parameter_gradients_match_jax(name):
 
 def test_complex_gabor_layers_and_fit():
     """The complex net's first layer is real, the rest complex64, and its
-    output real; ``Trainer.fit`` refuses its complex parameters (the JAX
-    trainer cannot fit them either: ROADMAP.md, section 3)."""
+    output real; ``Trainer.fit`` trains its complex parameters (the JAX
+    trainer cannot; ``tests/test_torch_wire_reference.py`` holds the fit to
+    a real-arithmetic reference): the loss is finite and falls, and every
+    Gabor layer's activation counts its rows in ``GABOR_ROWS``."""
     tm = make_gabor_net(3, dim_hidden=8, n_layers=3, kind="complex", device="cpu")
     assert [layer.lin.w.dtype for layer in tm.layers] == [torch.float32, torch.complex64, torch.complex64]
     assert [layer.complex for layer in tm.layers] == [False, True, True] and tm.name == "gabor_complex"
     ds = dataset_from_array(synthetic_volume((4, 4, 4), seed=0))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Trainer(TrainConfig(batch_size=16)).fit(tm, ds.coords, ds.values, device="cpu")
+    port_gabor.reset_gabor_rows()
+    result = Trainer(TrainConfig(batch_size=16, epochs=10, lr=1e-2)).fit(tm, ds.coords, ds.values, device="cpu")
+    assert np.isfinite(result.losses).all() and result.losses[-4:].mean() < result.losses[:4].mean()
+    assert port_gabor.GABOR_ROWS["gabor_complex"] == 3 * 16 * result.steps
+    assert all(p.is_complex() for layer in tm.layers[1:] for p in layer.parameters())
 
 
 def test_freq_mlp_refuses_the_hash_encoder():
