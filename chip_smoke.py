@@ -62,8 +62,10 @@ Phases, each printed with its time as it ends:
    warp_smooth, a level anneal); WIRE at its published widths (the
    complex GaborNet 3 -> 181 x 3 -> complex Linear, ``check_wire``): 3
    full-batch steps of ``Trainer.fit`` on 65,536 grid rows, each against
-   ``benchmark/reference_wire`` from the state the fit reached, and
-   ``GABOR_ROWS``; then the registrations at their default
+   ``benchmark/reference_wire`` from the state the fit reached,
+   ``GABOR_ROWS`` and ``WEIGHT_GRADS``, and the complex weight gradients'
+   times at wire.fit's 1,858,560 rows beside their bounds; then
+   the registrations at their default
    stages on the card and on the CPU (``register_pair`` on a (352, 352)
    pair and a (64, 64, 6) pair, ``register_group_temporal`` on 4 (352, 352)
    frames; a smooth frame under smooth displacements): the step-0 gradient,
@@ -1437,6 +1439,7 @@ def check_wire(torch) -> dict:
                               device=dev)[:WIRE_ROWS]
         capture = _StepCapture(model, 3)
         gabor.reset_gabor_rows()
+        gabor.reset_weight_grads()
         t0 = time.perf_counter()
         try:
             result = Trainer(TrainConfig(batch_size=WIRE_ROWS, epochs=3, lr=config["train"]["lr"], seed=seed)).fit(
@@ -1450,10 +1453,40 @@ def check_wire(torch) -> dict:
                                         [(x, data.targets(vol, (x + 1.0) * 0.5)) for x in capture.xs], block=16_384)
     counted = gabor.GABOR_ROWS["gabor_complex"]
     log(f"[wire] WIRE 181 x 3, {WIRE_ROWS:,d} rows full batch, 3 steps of Trainer.fit in {fit_s:.2f} s: losses "
-        f"{losses}; against the reference step by step {gaps}; GABOR_ROWS {counted}")
-    if any(not gaps[k] <= tol for k, tol in WIRE_RTOL.items()) or counted != 3 * 3 * WIRE_ROWS:
-        fail(f"wire: {gaps} (tolerances {WIRE_RTOL}), GABOR_ROWS {counted}")
+        f"{losses}; against the reference step by step {gaps}; GABOR_ROWS {counted}; WEIGHT_GRADS "
+        f"{gabor.WEIGHT_GRADS}")
+    # a step: the two hidden layers' weight gradients as matrices, the last's as a column
+    if any(not gaps[k] <= tol for k, tol in WIRE_RTOL.items()) or counted != 3 * 3 * WIRE_ROWS or \
+            gabor.WEIGHT_GRADS != {"matrix": 3 * 2, "column": 3}:
+        fail(f"wire: {gaps} (tolerances {WIRE_RTOL}), GABOR_ROWS {counted}, WEIGHT_GRADS {gabor.WEIGHT_GRADS}")
+    check_wire_weight_grads(torch, gabor, dev)
     return gaps
+
+
+def check_wire_weight_grads(torch, gabor, dev) -> None:
+    """WIRE's complex weight gradients at wire.fit's 1,858,560 rows, 181 ->
+    181 (the hidden layers) and 181 -> 1 (the last, a column), each beside
+    its bound (x and dY read once, 8 FLOP a complex multiply-add at the fp32
+    rate)."""
+    from benchmark.common import strict_fp32
+
+    rows = 352 * 352 * 15
+    gen = torch.Generator(device=dev).manual_seed(29)
+
+    def draw(width):
+        return torch.complex(*(torch.randn(rows, width, device=dev, generator=gen) for _ in range(2)))
+
+    x = draw(181)
+    with strict_fp32():
+        for dim_out in (181, 1):
+            dy = draw(dim_out)
+            bound, by = bound_ms(8.0 * rows * (181 + dim_out), 8.0 * rows * 181 * dim_out)
+            ms = time_ms(lambda: gabor.weight_grad(x, dy), iters=5)
+            log(f"[wire] dW 181 -> {dim_out} at {rows:,d} rows: {ms:.3f} ms, bound {bound:.3f} ms ({by}, "
+                f"{100 * bound / ms:.1f}%)")
+            del dy
+    del x
+    torch.cuda.empty_cache()
 
 
 def small_fit_frames_match_cpu(torch) -> dict:

@@ -28,6 +28,19 @@ real views; the gradient of the real loss is dL/dRe + i dL/dIm), held to
 trainer cannot fit this kind. Each complex Gabor layer's activation runs
 inside the span ``mri.model.gabor`` and adds its rows to
 :data:`GABOR_ROWS`. Plain tensor code.
+
+The layers whose weights are complex (the hidden ``lin`` and WIRE's
+``last``) are :class:`ComplexDense`: the forward is ``x @ w + b`` as
+``core.dense`` computes it, and so are the backward's ``dX = dY wᴴ`` and
+``db``. The weight gradient ``dW = xᴴ dY`` (:func:`weight_grad`) is that one
+product, x entering as a conj-transposed view (cuBLAS takes op C, nothing
+is copied), but for a column output (dim_out 1, WIRE's ``last``): that is
+taken as ``(dYᴴ x)ᴴ``, which cuBLAS runs as a matrix-vector product whose
+reduction it splits over the card, where ``xᴴ dY`` runs 3 GEMM tiles over
+all the rows (1.0 against 152 ms at 1,858,560 x 181 on an H100); the
+conjugates written are dY's, one entry a row, and the result's, not x's.
+Each weight gradient adds one to its path in :data:`WEIGHT_GRADS`
+(``"matrix"`` or ``"column"``).
 """
 
 from __future__ import annotations
@@ -40,16 +53,66 @@ from torch import nn
 
 from ..device import DeviceLike, resolve_device
 from ..tracing import span
-from .core import Dense, Model, dense_init, uniform_init
+from .core import Dense, Model, dense, dense_init, uniform_init
 
-__all__ = ["GaborNet", "make_gabor_net", "GABOR_ROWS", "reset_gabor_rows"]
+__all__ = ["GaborNet", "make_gabor_net", "GABOR_ROWS", "reset_gabor_rows", "ComplexDense", "complex_dense",
+           "weight_grad", "WEIGHT_GRADS", "reset_weight_grads"]
 
 GABOR_ROWS = {"gabor_complex": 0}  # rows x layers that complex Gabor activations took
+WEIGHT_GRADS = {"matrix": 0, "column": 0}  # complex Dense weight gradients, by the path they took
 
 
 def reset_gabor_rows() -> None:
     for name in GABOR_ROWS:
         GABOR_ROWS[name] = 0
+
+
+def reset_weight_grads() -> None:
+    for name in WEIGHT_GRADS:
+        WEIGHT_GRADS[name] = 0
+
+
+def weight_grad(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
+    """``xᴴ dy`` of (rows, dim_in) and (rows, dim_out) in one product; a
+    column dy as ``(dyᴴ x)ᴴ`` (the module's docstring)."""
+    if dy.shape[1] == 1 and x.shape[1] > 1:
+        WEIGHT_GRADS["column"] += 1
+        return dy.mH.mm(x).conj_physical().view(x.shape[1], 1)
+    WEIGHT_GRADS["matrix"] += 1
+    return x.mH.mm(dy)
+
+
+class _ComplexDense(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w, b):
+        ctx.save_for_backward(x, w)
+        return dense(w, b, x)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        dx = dw = db = None
+        if ctx.needs_input_grad[0]:
+            dx = dy.mm(w.mH)
+        if ctx.needs_input_grad[1]:
+            dw = weight_grad(x, dy)
+        if ctx.needs_input_grad[2]:
+            db = dy.sum(dim=0)
+        return dx, dw, db
+
+
+def complex_dense(w: torch.Tensor, b: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """``core.dense`` of a complex x (any leading dimensions, taken as rows)
+    whose weight gradient is :func:`weight_grad`'s."""
+    y = _ComplexDense.apply(x.reshape(-1, x.shape[-1]), w, b)
+    return y.view(*x.shape[:-1], y.shape[-1])
+
+
+class ComplexDense(Dense):
+    """A ``Dense`` whose weights are complex, through :func:`complex_dense`."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return complex_dense(self.w, self.b, x)
 
 
 class RealGaborLayer(nn.Module):
@@ -65,7 +128,7 @@ class RealGaborLayer(nn.Module):
 class ComplexGaborLayer(nn.Module):
     def __init__(self, lin, complex_weights: bool):
         super().__init__()
-        self.lin = Dense(lin)
+        self.lin = ComplexDense(lin) if complex_weights else Dense(lin)
         self.complex = complex_weights
 
     def forward(self, z: torch.Tensor, w0: float, sigma: float) -> torch.Tensor:
@@ -116,7 +179,7 @@ class GaborNet(Model):
             else:
                 raise ValueError(f"unknown init_scheme {init_scheme!r}")
         self.layers = nn.ModuleList(layers)
-        self.last = Dense(_complex_dense_init(dims[-2], dims[-1], generator)) if outermost_linear else None
+        self.last = ComplexDense(_complex_dense_init(dims[-2], dims[-1], generator)) if outermost_linear else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         for layer in self.layers:

@@ -24,9 +24,18 @@ of three steps are not compared: Adam's first step moves every weight by
 the rate whatever its gradient's size, so a near-zero gradient's last bits
 decide a weight's direction, and by the third step the losses of two
 float32 summation orders part by ~1e-4 (read on the card).
+
+The complex layers' weight gradient at the cell's shape (1,858,560 rows,
+181 -> 181 as xᴴ dY, and the last layer's 181 -> 1 column as (dYᴴ x)ᴴ) is
+held to the float64 product at a relative 2e-5 of the norm: float32 sums
+over 1.86 M rows read 6.4e-6 for the matrix and 7.8e-7 for the column on
+an H100; a gradient that drops the conjugate reads ~1.4. Its backward's
+trace writes no conjugate or copy of the activations (the column's: of
+dY's 1,858,560 entries and dW's 181).
 """
 
 import json
+import math
 from pathlib import Path
 
 import pytest
@@ -40,6 +49,7 @@ CONFIG = json.loads((Path(reference_wire.__file__).resolve().parent / "configs" 
 SEED = 3_000_000_081
 ROWS = 65_536
 LOSS_RTOL, GRAD_RTOL, CHANGE_RTOL = 2e-6, 1e-4, 1e-5
+MATERIALISING = ("aten::conj_physical", "aten::resolve_conj", "aten::clone", "aten::copy_", "aten::contiguous")
 
 
 @pytest.fixture
@@ -131,3 +141,47 @@ def test_three_full_batch_steps_of_trainer_fit_equal_the_reference(cuda_device):
     print("losses", list(result.losses), "gaps", gaps)
     assert result.losses[2] < result.losses[0]
     assert gaps["loss_gap"] <= LOSS_RTOL and gaps["grad_gap"] <= GRAD_RTOL and gaps["change_gap"] <= CHANGE_RTOL
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dim_out", [181, 1])
+def test_complex_weight_gradient_at_the_cells_shape(cuda_device, dim_out):
+    """One backward of ``gabor.complex_dense`` at wire.fit's rows: the path
+    ``WEIGHT_GRADS`` counts, dW against the float64 product and again bit for
+    bit, and the trace: no conjugate or copy written at 181 -> 181; for the
+    column, none larger than dY's 1,858,560 entries (dY's and dW's
+    conjugates), none of the activations."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from mri_interpolation_tpu_torch.models import gabor
+
+    dev, rows = cuda_device, 352 * 352 * 15
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+
+    def draw(*shape):
+        return torch.complex(*(torch.randn(*shape, device=dev, generator=gen) for _ in range(2)))
+
+    x, g = draw(rows, 181).requires_grad_(True), draw(rows, dim_out)
+    w, b = draw(181, dim_out).requires_grad_(True), draw(dim_out).requires_grad_(True)
+    with strict_fp32():
+        y = gabor.complex_dense(w, b, x)
+        gabor.reset_weight_grads()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], record_shapes=True) as prof:
+            y.backward(g)
+            torch.cuda.synchronize()
+        assert gabor.WEIGHT_GRADS == {"matrix": int(dim_out > 1), "column": int(dim_out == 1)}
+        assert torch.equal(gabor.weight_grad(x.detach(), g), w.grad)  # the same bits a second time
+        dropped = gabor.weight_grad(x.detach().conj(), g)
+    exact = x.detach().to(torch.complex128).mH @ g.to(torch.complex128)
+
+    def gap(dw):
+        return float(torch.linalg.vector_norm(dw.to(torch.complex128) - exact) / torch.linalg.vector_norm(exact))
+
+    rel, rel_dropped = gap(w.grad), gap(dropped)
+    print(f"181 -> {dim_out}: dW rel {rel:.3e}, dropped conjugate {rel_dropped:.3e}")
+    assert rel <= 2e-5 < rel_dropped
+    # what writes a conjugate or a copy (``aten::_conj`` is the lazy view cuBLAS takes as op C)
+    made = [(e.name, e.input_shapes) for e in prof.events() if e.name in MATERIALISING]
+    largest = max((math.prod(s) for _, shapes in made for s in shapes if isinstance(s, list) and s), default=0)
+    assert (not made) if dim_out == 181 else largest <= rows, made
