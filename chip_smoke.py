@@ -112,9 +112,9 @@ Phases, each printed with its time as it ends:
    - hash_siren (64x4, 10 levels, batch 20,000, zero-centred: 92 steps,
      kernel 1 on every grid chunk), modulated_siren (256x4, batch 20,000:
      92 steps) and psf_siren (256x5, 5^3 PSF points, batch 4096: 453 steps
-     of 512,000-row forwards, cuBLAS's products and the sine-layer pair once
-     a sine layer and step, the forward once a sine layer and grid chunk;
-     its spacing checked);
+     of 512,000-row forwards), each through cuBLAS's products and the
+     sine-layer pair once a sine layer and step, the forward once a sine
+     layer and grid chunk; psf_siren's spacing checked;
    - flagship_undersample: the flagship on the 10% of the voxels that
      seed 1337's mask keeps (kept // 10,000 steps);
    - warp_protocol: ``launcher.main --model_class warp_inr
@@ -1079,13 +1079,15 @@ def check_fused_mlp(torch, fm, dev):
     return rows
 
 
-SINE_SHAPES = ((512_000, 256), (4_097, 256))  # the PSF SIREN's step (4,096 centres x 125 points) and a ragged count
+# the PSF SIREN's step (4,096 centres x 125 points), a ragged count, the hash SIREN cell's step (2^18 rows), and the
+# launcher paths' steps of batch 20,000: the hash SIREN's at width 64, the modulated SIREN's at 256
+SINE_SHAPES = ((512_000, 256), (4_097, 256), (262_144, 256), (20_000, 64), (20_000, 256))
 SINE_RTOL = 1e-6  # of the norm: a and dz in autograd's order (expected equal), db summed in another order
 
 
 def check_sine_layer(torch, sl, dev):
-    """The sine-layer pair against its plain versions at the PSF SIREN's
-    512,000 x 256 (w0 30) and a ragged row count: a, dz and db within 1e-6
+    """The sine-layer pair against its plain versions at the shapes its
+    paths give it (:data:`SINE_SHAPES`, w0 30): a, dz and db within 1e-6
     of the norm, two backward runs equal; times beside the byte bounds (2
     passes forward, 3 backward), the plain versions' and, for the backward,
     the chain autograd ran from the saved argument (cos, two products, the
@@ -1322,8 +1324,9 @@ def small_fits(torch) -> dict:
         "relu_plain": small_fit_matches_cpu(torch, "relu_plain", lambda d: make_hash_mlp(3, device=d, **tcnn),
                                             TrainConfig(batch_size=200, epochs=1, lr=1e-2, shuffle=False,
                                                         optimizer="adam_tcnn")),
-        # the SIREN family: plain tensor code, and kernels 1-2 for hash_siren's encoder (coordinates in [0, 1]:
-        # the clamped extrapolation of [-1, 1] with a U(-0.5, 0.5) table leaves the curves ill-conditioned)
+        # the SIREN family: the modulated, hash and PSF SIRENs through cuBLAS's products and the sine-layer pair,
+        # and kernels 1-2 for hash_siren's encoder (coordinates in [0, 1]: the clamped extrapolation of [-1, 1]
+        # with a U(-0.5, 0.5) table leaves the curves ill-conditioned)
         "modulated_siren": small_fit_matches_cpu(
             torch, "modulated_siren", lambda d: make_modulated_siren(3, dim_hidden=64, n_layers=3, device=d, seed=5),
             siren_cfg, zero_centered=True),
@@ -1748,11 +1751,14 @@ def drive_held_out_paths(path: str, tmp: str, zero: dict, paths: dict) -> None:
         "hash_siren", "launcher.main, hash SIREN 64x4 (10 levels)",
         lambda: cli(launcher, [*HASH_SIREN_FLAGS, "--output_root", os.path.join(tmp, "hash_siren"), *grid]),
         n // 20_000, 20_000, {**zero, "hash_encode_forward": n // 20_000 + CHUNKS,
-                              "hash_encode_table_grad": n // 20_000, "probe": 1})
+                              "hash_encode_table_grad": n // 20_000,
+                              "sine_layer_forward": 4 * (n // 20_000 + CHUNKS),
+                              "sine_layer_backward": 4 * (n // 20_000), "probe": 1})
     paths["modulated_siren"] = drive_path(
         "modulated_siren", "launcher.main, modulated SIREN 256x4",
         lambda: cli(launcher, [*MODULATED_FLAGS, "--output_root", os.path.join(tmp, "modulated"), *grid]),
-        n // 20_000, 20_000, {**zero, "probe": 1})
+        n // 20_000, 20_000, {**zero, "sine_layer_forward": 4 * (n // 20_000 + CHUNKS),
+                              "sine_layer_backward": 4 * (n // 20_000), "probe": 1})
     paths["psf_siren"] = out = drive_path(
         "psf_siren", "launcher.main, PSF SIREN 256x5 (5^3 points: 512,000-row forwards)",
         lambda: cli(launcher, [*PSF_FLAGS, "--output_root", os.path.join(tmp, "psf"), *grid]),
@@ -3340,9 +3346,11 @@ SCRIPTS_PROBE_STEPS = 8 * 352 * 352 // 10_000  # 99: a warp fit's one epoch on t
 # the notebook at EPOCHS = 12 on its (24, 24, 12) volume, 3 steps an epoch at batch 2048: SIREN 36 steps and one
 # grid chunk (kernels 5-6); the two 4-level hash MLPs 72 steps and one grid chunk each (kernels 1-2 and 5-6; a
 # hashed level, so kernel 1 per chunk); the protocol's 3-level one 24 steps of its 3,456 even-frame rows and its
-# grid on the separable route (all levels dense: kernel 5 alone). The ReLU MLP, RFF and modulated SIREN run none.
+# grid on the separable route (all levels dense: kernel 5 alone); the modulated SIREN 64x3 the sine-layer pair once a
+# sine layer and step (36 steps) and grid chunk (one). The ReLU MLP and RFF run none.
 SCRIPTS_NOTEBOOK_LAUNCHES = {"hash_encode_forward": 73 + 73 + 24, "hash_encode_table_grad": 72 + 72 + 24,
-                             "fused_mlp_forward": 37 + 73 + 73 + 25, "fused_mlp_backward": 36 + 72 + 72 + 24}
+                             "fused_mlp_forward": 37 + 73 + 73 + 25, "fused_mlp_backward": 36 + 72 + 72 + 24,
+                             "sine_layer_forward": 3 * 37, "sine_layer_backward": 3 * 36}
 # validate_sharded_4d on each of its 8 ranks: kernel 1 once (the single-table oracle), kernels 5-6 on each of
 # the sharded fit's 16 steps (2 epochs of 32,768 rows at batch 4,096; the sharded encode itself is plain torch)
 SCRIPTS_SHARDED_RANK_LAUNCHES = {"hash_encode_forward": 1, "fused_mlp_forward": 16, "fused_mlp_backward": 16}

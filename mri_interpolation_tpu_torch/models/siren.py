@@ -14,13 +14,16 @@ function. Parameter names mirror the JAX tree (``layers.{i}.w``,
 ``layers.{i}.b``, ``last.w``, ``last.b``), so ``convert.params_from_jax``
 moves a JAX SIREN across unchanged.
 
-The variants, in plain tensor code (the JAX package fuses only
-``make_siren``):
+The variants (the JAX package fuses only ``make_siren``):
 
 - ``make_modulated_siren`` (``ModulatedSirenNet``): a ReLU modulator over
   the raw coordinates, whose layer i takes ``cat(h, x)`` and scales the
   output of sine layer i. Tree ``{"siren": {"layers", "last"},
-  "modulator": [{"w", "b"}, ...]}``;
+  "modulator": [{"w", "b"}, ...]}``. The sine layers run as the PSF SIREN's
+  (:func:`_sine_layers_forward`: cuBLAS's product, then one ``SineLayer``),
+  each then multiplied by its modulation; the modulator's layers, ReLUs
+  and concatenations run inside the span ``mri.model.modulator``, and
+  :data:`MODULATOR_ROWS` counts rows x layers they took;
 - ``make_hash_siren`` (``HashSirenNet``): the same with the modulator fed a
   hash encoding of the coordinates (``HashGridEncoder``: the hash-encode
   kernel pair on the card); tree as above plus ``"encoder": {"table"}``;
@@ -35,11 +38,16 @@ The variants, in plain tensor code (the JAX package fuses only
   "last"}``. The expansion and the integration each open a span
   (``mri.model.psf_expand``, ``mri.model.psf_integrate``), and
   :data:`PSF_ROWS` counts the rows the objective fed the SIREN.
+
+The sine-layer kernels read rows as float4, so on a CUDA device the three
+variants take a ``dim_hidden`` that is a multiple of 4: their factories
+refuse another width there (:func:`check_card_width`), which runs on the
+CPU alone.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence, Tuple, Union
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -53,14 +61,29 @@ from .core import Dense, Model, uniform_init
 
 __all__ = ["Siren", "make_siren", "siren_layer_init", "siren_layer_apply", "siren_init", "ModulatedSiren",
            "make_modulated_siren", "HashSiren", "make_hash_siren", "PsfSiren", "make_psf_siren",
-           "psf_offsets_and_weights", "PSF_ROWS", "reset_psf_rows"]
+           "psf_offsets_and_weights", "PSF_ROWS", "reset_psf_rows", "MODULATOR_ROWS", "reset_modulator_rows",
+           "check_card_width"]
 
 PSF_ROWS = {"psf_siren": 0}  # rows (B * K a call) that PsfSiren.psf_loss fed the SIREN
+MODULATOR_ROWS = {"hash_siren": 0, "modulated_siren": 0}  # rows x layers that a model's modulator took
 
 
 def reset_psf_rows() -> None:
     for name in PSF_ROWS:
         PSF_ROWS[name] = 0
+
+
+def reset_modulator_rows() -> None:
+    for name in MODULATOR_ROWS:
+        MODULATOR_ROWS[name] = 0
+
+
+def check_card_width(name: str, dim_hidden: int, dev: torch.device) -> None:
+    """Refuses, on a CUDA device, a width the sine-layer kernels cannot
+    take (a multiple of 4 only); any width on the CPU."""
+    if dev.type == "cuda" and dim_hidden % 4:
+        raise ValueError(f"{name} on {dev}: the sine-layer kernels take a dim_hidden (--dim_hidden) that is a "
+                         f"multiple of 4, not {dim_hidden}; other widths run on the CPU alone (device='cpu')")
 
 
 def siren_layer_init(dim_in: int, dim_out: int, w0: float, sigma: float, is_first: bool,
@@ -93,13 +116,21 @@ def _siren_forward(params, x: torch.Tensor, n_layers: int, w0: float, w0_initial
     return siren_layer_apply(params["last"], x, w0, sine=False)
 
 
-def _sine_layers_forward(params, x: torch.Tensor, n_layers: int, w0: float, w0_initial: float) -> torch.Tensor:
+def _sine_layers_forward(params, x: torch.Tensor, n_layers: int, w0: float, w0_initial: float,
+                         mods: Optional[Sequence[torch.Tensor]] = None) -> torch.Tensor:
     """:func:`_siren_forward`'s function with each sine layer's bias, w0
-    scale and sine in one :class:`SineLayer` after its product."""
+    scale and sine in one :class:`SineLayer` after its product; with
+    ``mods``, sine layer i's output multiplied by ``mods[i]`` (the
+    modulated SIREN). Leading dimensions are taken as rows: the kernels
+    take (n, width)."""
+    lead = x.shape[:-1]
+    x = x.reshape(-1, x.shape[-1])
     for i in range(n_layers):
         layer = params["layers"][i]
         x = SineLayer.apply(x @ layer["w"], layer["b"], w0_initial if i == 0 else w0)
-    return x @ params["last"]["w"] + params["last"]["b"]
+        if mods is not None:
+            x = x * mods[i].reshape(x.shape)
+    return (x @ params["last"]["w"] + params["last"]["b"]).reshape(*lead, -1)
 
 
 class Siren(Model):
@@ -147,8 +178,8 @@ def make_siren(
 
 class SineLayers(nn.Module):
     """A SIREN's parameters as the JAX tree {"layers", "last"}, with no
-    forward of its own: :class:`ModulatedSiren` applies them unfused, between
-    its modulations."""
+    forward of its own: :class:`ModulatedSiren` applies them layer by layer,
+    each sine layer's output multiplied by its modulation."""
 
     def __init__(self, tree):
         super().__init__()
@@ -183,18 +214,23 @@ class ModulatedSiren(Model):
     def latent(self, x: torch.Tensor) -> torch.Tensor:
         return x
 
+    def modulations(self, lat: torch.Tensor) -> List[torch.Tensor]:
+        """The modulator's outputs over the latent ``lat``, one a sine layer:
+        layer i is ``relu(cat(h_{i-1}, lat) @ w + b)``, the first ``relu(lat
+        @ w + b)``."""
+        MODULATOR_ROWS[self.name] += lat.numel() // lat.shape[-1] * len(self.modulator)
+        with span("mri.model.modulator"):
+            h, mods = lat, []
+            for i, layer in enumerate(self.modulator):
+                if i:
+                    h = torch.cat([h, lat], dim=-1)
+                h = torch.relu(layer(h))
+                mods.append(h)
+            return mods
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        lat = self.latent(x)
-        h, mods = lat, []
-        for layer in self.modulator:
-            h = torch.relu(layer(h))
-            mods.append(h)
-            h = torch.cat([h, lat], dim=-1)
-        params = self.siren.params
-        y = x
-        for i in range(self.n_layers):
-            y = siren_layer_apply(params["layers"][i], y, self.w0_initial if i == 0 else self.w0) * mods[i]
-        return siren_layer_apply(params["last"], y, self.w0, sine=False)
+        mods = self.modulations(self.latent(x))
+        return _sine_layers_forward(self.siren.params, x, self.n_layers, self.w0, self.w0_initial, mods)
 
 
 class HashSiren(ModulatedSiren):
@@ -281,6 +317,7 @@ def make_modulated_siren(
     on the CPU from ``torch.Generator().manual_seed(seed)`` (the SIREN, then
     the modulator) and moved to ``device`` (``cuda`` unless ``"cpu"``)."""
     dev = resolve_device(device)
+    check_card_width("modulated_siren", dim_hidden, dev)
     gen = torch.Generator().manual_seed(seed)
     model = ModulatedSiren(dim_in, dim_hidden, dim_out, n_layers, w0, w0_initial, sigma, dim_in, gen)
     model.hparams = {"lr": lr}
@@ -313,6 +350,7 @@ def make_hash_siren(
     from .hash_mlp import HashGridEncoder
 
     dev = resolve_device(device)
+    check_card_width("hash_siren", dim_hidden, dev)
     geometry = HashGridEncoding(dim=dim_in, n_levels=n_levels, n_features_per_level=n_features_per_level,
                                 log2_hashmap_size=log2_hashmap_size, base_resolution=base_resolution,
                                 finest_resolution=None, per_level_scale=per_level_scale)
@@ -344,6 +382,7 @@ def make_psf_siren(
     if coordinates_spacing is None:
         raise ValueError("psf_siren needs coordinates_spacing (half-voxel extents in normalized coords)")
     dev = resolve_device(device)
+    check_card_width("psf_siren", dim_hidden, dev)
     gen = torch.Generator().manual_seed(seed)
     model = PsfSiren(dim_in, dim_hidden, dim_out, n_layers, w0, w0_initial, sigma, coordinates_spacing, n_sample,
                      gen)

@@ -31,6 +31,9 @@ launches, syncs).
 - ``mri.model.gabor``: a complex Gabor layer's activation, ``exp(i w0 z -
   |sigma z|^2)`` of its product ``z`` (``models.gabor``: the complex
   GaborNet and WIRE), once a layer and forward;
+- ``mri.model.modulator``: the modulated and hash SIRENs' modulator network
+  over the latent, its layers, ReLUs and concatenations
+  (``ModulatedSiren.modulations``), once a forward;
 - ``mri.grid.request``: one ``evaluate_grid`` call;
 - ``mri.grid.encode``: the separable route's ``apply_grid`` of the whole grid;
 - ``mri.grid.chunk``: one writer call of the chunk walk (``infer.grid._walk``,
@@ -69,6 +72,7 @@ SPANS = (
     "mri.model.psf_expand",
     "mri.model.psf_integrate",
     "mri.model.gabor",
+    "mri.model.modulator",
     "mri.grid.request",
     "mri.grid.encode",
     "mri.grid.chunk",

@@ -219,7 +219,7 @@ def test_dense_products_leave_every_other_cell_as_it_read():
                     ("mri_torch::fused_mlp_forward", 5e-3, 1e-4), ("mri.grid.chunk", 6e-3, 2e-4),
                     ("mri.grid.to_host", 7e-3, 1e-3)]
     others = [m["name"] for m in spec.load_benchmark()["per_layer"] if CELL not in m["workloads"]]
-    assert len(others) == 22
+    assert len(others) == 28
     for name in others:
         with_dense = _read(name, _outcome(_window(OPS, host), OLD_WORK))
         assert with_dense == _read(name, _outcome(_window(OPS, host, without), OLD_WORK)), name
